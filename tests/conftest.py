@@ -22,3 +22,9 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 8)
 jax.config.update("jax_enable_x64", False)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when CUDA is absent"
+    )
