@@ -2,20 +2,29 @@
 
     python3 chip_smoke.py
 
-Drives the port's serving path once at the full width of
-``egs/egs_bases/radnerf/lm3d_radnerf.yaml``: random weights from a seeded
-``torch.Generator``, the occupancy ball of ``bench.py`` (radius 0.6), a
-512² synthetic 8-frame dataset, and ``RADNeRFInfer.render_frames`` on
-``cuda``. It builds every CUDA kernel of the path from ``csrc/`` (one
-``nvcc`` per source, started together), checks that the main path launched
-each of them, holds every kernel against its plain PyTorch version on the
-inputs captured from a real frame, times kernel / plain / library call,
-and checks the frame against the port's plain CPU path.
+Drives the port's two paths at the full width of
+``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` on a 512² synthetic 8-frame
+dataset, with random weights from a seeded ``torch.Generator``:
+
+- serving: the occupancy ball of ``bench.py`` (radius 0.6) and
+  ``RADNeRFInfer.render_frames`` on ``cuda``, the frame checked against the
+  port's plain CPU path;
+- training: ``RADNeRFTask.train_step`` for 20 steps of 65,536 rays (the
+  occupancy sweeps of steps 0 and 16 included), every loss finite, a
+  non-zero gradient in every parameter group, and one step's loss and
+  gradients checked against the port's plain CPU path on 4,096 rays.
+
+It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
+together), sets the launch counts to 0 before each path and checks after it
+that the path launched each kernel at every call site, then holds every
+kernel against its plain PyTorch version on the arguments captured at each
+call site of a real frame, step and sweep, and times kernel, plain version
+and library call there.
 
 Prints, before the last line: the card's name and power limit, ms/frame,
-the ray and sample capacities, the device time of one frame by renderer
-stage (``torch.profiler``; the full table goes to
-``smoke_out/frame_profile.txt``), and one ``{"kernels": [...]}`` JSON line.
+ms/step, the sweep's ms, rays/s, the capacities, the device time by stage
+and the idle share of a frame and of a step (``torch.profiler``; the tables
+go to ``smoke_out/``), the losses, and one ``{"kernels": [...]}`` JSON line.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler; ``ms_events`` adds the host's launch gaps.
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
@@ -36,6 +45,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 HW = 512
 N_FRAMES = 8
 RENDER_FRAMES = 4
+TRAIN_RAYS = 65536
+TRAIN_STEPS = 20
+CHECK_RAYS = 4096
 #: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
 #: (non-tensor-core) operations/s
 PEAK_BYTES_S = 3.35e12
@@ -142,13 +154,15 @@ def events_ms(fn, iters: int = 20) -> float:
 
 
 def _device_events(prof):
-    """Kernels, copies and fills on the device (not the ``gf::`` stage
-    ranges, which the profiler also places on the device timeline)."""
+    """Kernels, copies and fills on the device: not the ranges that the
+    profiler also places on the device timeline (the ``gf::`` stages, the
+    optimizer's ``Optimizer.step#...``), which would count their kernels
+    twice."""
     from torch.autograd import DeviceType
 
     return [
         e for e in prof.key_averages()
-        if e.device_type != DeviceType.CPU and not e.key.startswith("gf::")
+        if e.device_type != DeviceType.CPU and not e.key.startswith(("gf::", "Optimizer."))
     ]
 
 
@@ -160,33 +174,83 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in _device_events(prof))
-    if total_us <= 0:
-        raise RuntimeError("the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    # the profiler now and then hands back a window without its device
+    # activity (seen on the card for both kernels and library calls): the
+    # window is taken again, at most three times
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total for e in _device_events(prof))
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    raise RuntimeError("the profiler recorded no device time in three windows")
 
 
-def measure_scatter_site(rows, updates, n_rows, exact: bool) -> dict:
-    """Kernel vs plain vs library call on one captured call site."""
+def _wrapper_patches():
+    """(module, attribute, call site kind) of every kernel wrapper the main
+    path calls through a module global."""
+    from geneface_tpu_torch.ops import fused_grid, scatter
+
+    return [
+        (fused_grid, "launch_gather_rows", "grid_forward"),
+        (fused_grid, "launch_scatter_add_rows", "grid_backward"),
+        (scatter, "launch_scatter_add_rows", "scatter_add_rows"),
+        (scatter, "launch_gather_rows", "gather_rows"),
+    ]
+
+
+def capture_calls(run) -> list:
+    """``(kind, args)`` of every kernel call that ``run()`` makes, with the
+    tensor arguments cloned, in call order."""
+    import torch
+
+    calls = []
+    patches = _wrapper_patches()
+    reals = [getattr(mod, name) for mod, name, _ in patches]
+
+    def recorder(real, kind):
+        def call(*args):
+            calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+            return real(*args)
+
+        return call
+
+    for (mod, name, kind), real in zip(patches, reals):
+        setattr(mod, name, recorder(real, kind))
+    try:
+        run()
+    finally:
+        for (mod, name, _), real in zip(patches, reals):
+            setattr(mod, name, real)
+    return calls
+
+
+def measure_scatter(rows, updates, n_rows, exact: bool) -> dict:
+    """K1 vs its plain version vs ``index_add_`` on one captured call."""
     import torch
 
     from geneface_tpu_torch.ops import scatter as sc
 
-    got = sc.scatter_add_rows(rows, updates, n_rows)
+    got = sc.launch_scatter_add_rows(rows, updates, n_rows)
     ref = sc.scatter_add_rows_plain(rows, updates, n_rows)
     torch.cuda.synchronize()
     err = float((got - ref).abs().max()) if got.numel() else 0.0
+    kept = (rows >= 0) & (rows < n_rows)
     if exact:
         if err != 0.0:
-            raise AssertionError(f"frame scatter (unique rows) not exact: {err}")
+            raise AssertionError(f"scatter with unique rows not exact: {err}")
     else:
-        # float32 sums of the same terms in atomic order: stated tolerance
-        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6)
-    kept = (rows >= 0) & (rows < n_rows)
+        # float32 sums of the same terms in two atomic orders: each sum of n
+        # terms is held to the first-order bound of both orders' rounding,
+        # 2·n·2^-24 times the sum of its terms' magnitudes (the grid
+        # backward sums up to ~2,000 cancelling terms per row)
+        n = torch.bincount(rows[kept].long(), minlength=n_rows).float()[:, None]
+        mag = sc.scatter_add_rows_plain(rows, updates.abs(), n_rows)
+        bad = int(((got - ref).abs() > 2.0 * n * 2.0**-24 * mag).sum())
+        if bad:
+            raise AssertionError(f"scatter: {bad} sums beyond the float32 rounding bound")
     n_kept = int(kept.sum())
     M, W = updates.shape
     # the library yardstick: one index_add_ on in-range rows (redirected to
@@ -202,32 +266,128 @@ def measure_scatter_site(rows, updates, n_rows, exact: bool) -> dict:
     return {
         "M": M, "W": W, "n_rows": int(n_rows), "kept_rows": n_kept,
         "max_abs_err": err,
-        "ms": device_ms(lambda: sc.scatter_add_rows(rows, updates, n_rows)),
+        "ms": device_ms(lambda: sc.launch_scatter_add_rows(rows, updates, n_rows)),
         "plain_ms": device_ms(lambda: sc.scatter_add_rows_plain(rows, updates, n_rows)),
         "library_ms": device_ms(library),
-        "ms_events": events_ms(lambda: sc.scatter_add_rows(rows, updates, n_rows)),
+        "ms_events": events_ms(lambda: sc.launch_scatter_add_rows(rows, updates, n_rows)),
         "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
         "ops_ms": n_ops / PEAK_F32_OPS_S * 1e3,
     }
 
 
-def capture_scatter_calls(infer, frame: int) -> list:
-    """(rows, updates, n_rows) of every K1 call of one frame's render."""
-    from geneface_tpu_torch.models.radnerf import renderer
+def measure_gather(table, idx) -> dict:
+    """K8 vs its plain version vs ``index_select`` on one captured call (a
+    copy: the result must be exact)."""
+    import torch
 
-    calls = []
-    real = renderer.scatter_add_rows
+    from geneface_tpu_torch.ops import gather as ga
 
-    def recorder(rows, updates, n_rows):
-        calls.append((rows.clone(), updates.clone(), int(n_rows)))
-        return real(rows, updates, n_rows)
+    got = ga.launch_gather_rows(table, idx)
+    ref = ga.gather_rows_plain(table, idx)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max()) if got.numel() else 0.0
+    if err != 0.0:
+        raise AssertionError(f"row gather not exact: {err}")
+    R, W = table.shape
+    M = idx.shape[0]
+    keep = (idx >= 0) & (idx < R)
+    # the library yardstick: one index_select of the float32 table, with
+    # out-of-range indices sent to an appended zero row outside the timed call
+    padded = torch.cat([table, torch.zeros(1, W, dtype=table.dtype, device=table.device)])
+    safe = torch.where(keep, idx, R).long()
 
-    renderer.scatter_add_rows = recorder
-    try:
-        infer.render_frame(frame)
-    finally:
-        renderer.scatter_add_rows = real
-    return calls
+    def library():
+        return padded.float().index_select(0, safe)
+
+    n_bytes = M * 4 + R * W * table.element_size() + M * W * 4
+    return {
+        "M": M, "W": W, "n_rows": R, "kept_rows": int(keep.sum()), "max_abs_err": err,
+        "ms": device_ms(lambda: ga.launch_gather_rows(table, idx)),
+        "plain_ms": device_ms(lambda: ga.gather_rows_plain(table, idx)),
+        "library_ms": device_ms(library),
+        "ms_events": events_ms(lambda: ga.launch_gather_rows(table, idx)),
+        "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
+        "ops_ms": 0.0,
+    }
+
+
+def group_names(model) -> dict:
+    """Fast-view table shape → ``pos.group_<i>`` / ``ambient.group_<i>``."""
+    import torch
+
+    with torch.no_grad():
+        tables = model.grid_tables()
+    return {tuple(t.shape): f"{key}.group_{gi}"
+            for key, ts in tables.items() for gi, t in enumerate(ts)}
+
+
+def name_sites(calls, names: dict, path: str, sweep_chunk: int | None = None) -> dict:
+    """First captured call of each distinct site → ``{site: (kernel, kind,
+    args)}``; grid sites are named by their table, sweep chunks apart."""
+    sites = {}
+    for kind, args in calls:
+        if kind == "grid_forward":
+            table, idx = args
+            where = "sweep" if idx.shape[0] == sweep_chunk else path
+            site = f"{where}.{names[tuple(table.shape)]}.forward_gather"
+            kernel = "gather_rows"
+        elif kind == "grid_backward":
+            rows, upd, n_rows = args
+            site = f"{path}.{names[(n_rows, upd.shape[1])]}.backward_scatter"
+            kernel = "scatter_add_rows"
+        elif kind == "scatter_add_rows":
+            rows, upd, n_rows = args
+            first = not any(kd == "scatter_add_rows" for _, kd, _ in sites.values())
+            site = f"{path}.composite_sums" if first else f"{path}.frame_scatter"
+            kernel = "scatter_add_rows"
+        else:
+            site = f"{path}.composite_sums.backward_gather"
+            kernel = "gather_rows"
+        sites.setdefault(site, (kernel, kind, args))
+    return sites
+
+
+def measure_sites(sites: dict, per_call: dict) -> list:
+    """Time every site; ``per_call[site]`` = launches per step or frame."""
+    out = []
+    for site, (kernel, kind, args) in sites.items():
+        if kernel == "gather_rows":
+            m = measure_gather(*args)
+        else:
+            exact = site.endswith("frame_scatter")
+            m = measure_scatter(*args, exact=exact)
+        m.update(site=site, kernel=kernel, launches_per_call=per_call.get(site, 1))
+        out.append(m)
+    return out
+
+
+def kernel_entry(name: str, sites: list, launches: dict) -> dict:
+    """One kernel's line of the ``kernels`` JSON: its times summed over one
+    call at every site, launches of the counted serve and train runs."""
+    mine = [s for s in sites if s["kernel"] == name]
+    bytes_ms = sum(s["bytes_ms"] for s in mine)
+    ops_ms = sum(s["ops_ms"] for s in mine)
+    meta = {
+        "scatter_add_rows": ("geneface_tpu_torch/csrc/scatter_add_rows.cu",
+                             "geneface_tpu/ops/pallas_scatter.py:79"),
+        "gather_rows": ("geneface_tpu_torch/csrc/gather_rows.cu",
+                        "tools/bench_pallas_scatter2.py:67"),
+    }[name]
+    return {
+        "name": name, "route": "cuda", "source": meta[0], "replaces": meta[1],
+        "launches": sum(v[name] for v in launches.values()),
+        "launches_by_path": {k: v[name] for k, v in launches.items()},
+        "max_abs_err": max(s["max_abs_err"] for s in mine),
+        "ms": sum(s["ms"] for s in mine),
+        "plain_ms": sum(s["plain_ms"] for s in mine),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": sum(s["library_ms"] for s in mine),
+        "ms_events": sum(s["ms_events"] for s in mine),
+        "bytes_ms": bytes_ms,
+        "sum_of": "one call at each site below",
+        "sites": mine,
+    }
 
 
 def profile_frame(infer, out_dir: str, steady_ms: float) -> dict:
@@ -264,6 +424,283 @@ def profile_frame(infer, out_dir: str, steady_ms: float) -> dict:
             "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
 
 
+def serve_phase(cfg, out_dir: str) -> tuple:
+    """The serving path: 4 frames through ``RADNeRFInfer.render_frames``,
+    checked against the CPU plain path; → (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.inference import RADNeRFInfer
+    from geneface_tpu_torch.kernels import LAUNCHES
+
+    infer = RADNeRFInfer(cfg)  # cuda, bf16 MLPs
+    # warm-up (first launches, allocator), then the counted main path
+    infer.render_frames(1)
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t1 = time.perf_counter()
+    frames = infer.render_frames(RENDER_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = dict(LAUNCHES)
+
+    if frames.shape != (RENDER_FRAMES, HW, HW, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"frames {frames.shape} {frames.dtype}")
+    # per frame: the composite sums and (with the ray cull) the frame
+    # scatter (K1), one row gather per grid group (K8)
+    n_groups = len(infer.model.pos_fused_meta.groups) + len(infer.model.ambient_fused_meta.groups)
+    per_frame = 2 if infer.ray_capacity else 1
+    want = {"scatter_add_rows": per_frame * RENDER_FRAMES,
+            "gather_rows": n_groups * RENDER_FRAMES}
+    if launches != want:
+        raise AssertionError(f"serving launches {launches}, expected {want}")
+    last = infer.last_render
+    if not torch.isfinite(last["rgb_map"]).all():
+        raise AssertionError("non-finite pixels")
+    bg = torch.as_tensor(infer.dataset[RENDER_FRAMES - 1]["bg_torso_img"], device=infer.device)
+    if float((last["rgb_map"] - bg).abs().max()) < 0.02:
+        raise AssertionError("the head does not show against the background")
+
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        infer.render_frame(0)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - ts) * 1e3)
+    C = infer.ray_capacity or HW * HW
+    Mc = -(-C * int(cfg["mean_samples_per_ray"]) // 1024) * 1024
+    n_samples = last["n_samples"].float()
+    print(f"serve: ms/frame {wall / RENDER_FRAMES * 1e3:.3f} (render_frames of "
+          f"{RENDER_FRAMES}, per-video set-up included); steady render_frame "
+          f"median {sorted(times)[2]:.3f} ms")
+    print(f"serve: ray capacity C={C}, sample capacity Mc={Mc}, mean samples/ray "
+          f"{float(n_samples.mean()):.3f} over the C rendered rays "
+          f"(hit rays: {int((n_samples > 0).sum())})")
+
+    # frame vs the port's plain CPU path (same checkpoint, same dtype)
+    cpu = RADNeRFInfer(cfg, device="cpu")
+    cpu.prepare()
+    if cpu.ray_capacity != infer.ray_capacity:
+        raise AssertionError(f"capacity {cpu.ray_capacity} on CPU vs {C}")
+    ref = cpu.render_frame(0)["rgb_map"]
+    gpu = infer.render_frame(0)["rgb_map"].cpu()
+    diff = (gpu - ref).abs()
+    print(f"serve: frame 0 vs CPU plain path: max abs {float(diff.max()):.3e}, "
+          f"mean abs {float(diff.mean()):.3e}")
+    # bf16 MLPs on both sides: a hidden unit may round the other way
+    if float(diff.max()) > 1e-3 or float(diff.mean()) > 1e-6:
+        raise AssertionError("GPU frame disagrees with the CPU plain path")
+
+    calls = capture_calls(lambda: infer.render_frame(0))
+    sites = name_sites(calls, group_names(infer.model), "serve")
+    prof = profile_frame(infer, out_dir, sorted(times)[2])
+    print(f"serve: frame device time {prof['device_busy_ms']:.3f} ms of "
+          f"{prof['steady_ms']:.3f} ms wall (idle share {prof['idle_share']:.3f}); "
+          "stages ms " + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
+    record = {"ms_per_frame": wall / RENDER_FRAMES * 1e3, "steady_ms": times,
+              "ray_capacity": C, "sample_capacity": Mc, "profile": prof}
+    return record, launches, sites
+
+
+def train_cfg(cfg: dict) -> dict:
+    """The training cell: the full-width config at ``base.yaml``'s training
+    keys, 65,536 rays per step, the occupancy sweep every 16 steps."""
+    return dict(
+        cfg, n_rays=TRAIN_RAYS, finetune_lips=False, update_extra_interval=16,
+        lattice_K=32, lr=0.0005, scheduler="exponential", lambda_ambient=0.1,
+        lambda_weights_entropy=1e-4, native_loader=False,
+    )
+
+
+def check_grads_vs_cpu(task, batch) -> dict:
+    """One step's loss and gradients on the card against the port's plain
+    CPU path, on the trained task's parameters and occupancy, one batch (cut
+    to ``CHECK_RAYS`` rays) and the same noises, with float32 MLPs on both
+    sides (at bf16 a hidden unit may round the other way on one side).
+    Tolerances: loss rel 1e-3; per parameter, the relative L2 error of the
+    gradient <= 0.1. Sums run in another order (cuBLAS, atomics), so the
+    ambient coordinates differ in their last bits, and one that sits on a
+    block boundary of the fused ambient grid can take another row, where
+    the feature jumps (the fused layout's aliasing). Over twelve runs on the
+    card that moved the loss by up to 2.4e-5 (relative) and a gradient by
+    up to 2.3e-2 (relative L2, the position hash table); a fault such as a
+    missing gradient gives 1."""
+    import torch
+
+    from geneface_tpu_torch.models.radnerf import OccupancyState
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+
+    cut = {k: (v[:CHECK_RAYS] if k in ("inds", "gt_img_u8", "bg_img_u8", "bg_torso_img_u8")
+               else v) for k, v in batch.items()}
+    noises = torch.rand(CHECK_RAYS, generator=torch.Generator().manual_seed(5))
+    params = {k: v.detach().cpu() for k, v in task.model.state_dict().items()}
+    occ = [x.cpu() for x in task.occ]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = RADNeRFTask(task.cfg, device=dev, dtype=torch.float32)
+        t.build()
+        t.model.load_state_dict(params)
+        t.set_occupancy(OccupancyState(*[x.to(t.device) for x in occ]))
+        t._spr_bucket, t._latk_bucket = task._spr_bucket, task._latk_bucket
+        loss, losses = t.loss_fn(t.device_batch(cut, task._step), noises.to(t.device), train=True)
+        loss.backward()
+        out[dev] = (float(loss.detach()), float(losses["mean_samples"]),
+                    {n: p.grad.detach().cpu().double() for n, p in t.model.named_parameters()})
+    (lg, sg, gg), (lc, sc_, gc) = out["cuda"], out["cpu"]
+    worst = 0.0
+    for n, g in gc.items():
+        err = float((gg[n] - g).norm() / g.norm()) if g.norm() > 0 else float(gg[n].norm())
+        worst = max(worst, err)
+        if not err <= 0.1:
+            raise AssertionError(f"gradient of {n}: relative L2 error {err} card vs CPU")
+    # the march rounds its positions as on the CPU: the same samples
+    if abs(lg - lc) > 1e-3 * abs(lc) or sg != sc_:
+        raise AssertionError(f"loss {lg} vs {lc} / mean samples {sg} vs {sc_}")
+    res = {"rays": CHECK_RAYS, "mlp_dtype": "float32", "loss_cuda": lg, "loss_cpu": lc,
+           "mean_samples": sg, "worst_grad_rel_l2": worst}
+    print("train: card vs CPU plain path on one step passed: " + json.dumps(res))
+    return res
+
+
+def train_phase(cfg, out_dir: str) -> tuple:
+    """The training path: ``RADNeRFTask.train_step`` for ``TRAIN_STEPS``
+    steps (sweeps at steps 0 and 16); → (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.training.optim import param_groups, radnerf_label_fn
+
+    task = RADNeRFTask(train_cfg(cfg))  # cuda, bf16 MLPs
+    task.build()
+    batches = task.train_batches()
+    interval = int(task.cfg["update_extra_interval"])
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    step_ms, losses, spr = [], [], []
+    t_all = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = task.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(out["total_loss"]))
+        spr.append(float(out["mean_samples"]))
+    wall = time.perf_counter() - t_all
+    launches = dict(LAUNCHES)
+    n_groups = len(task.model.pos_fused_meta.groups) + len(task.model.ambient_fused_meta.groups)
+    n_sweeps = len(range(0, TRAIN_STEPS, interval))
+    chunks = 16
+    # per step: the grid gathers and the composite's backward gather (K8),
+    # the composite sums and the grid backward scatters (K1); per sweep one
+    # gather per group and chunk
+    want = {
+        "gather_rows": TRAIN_STEPS * (n_groups + 1) + n_sweeps * chunks * n_groups,
+        "scatter_add_rows": TRAIN_STEPS * (1 + n_groups),
+    }
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, expected {want}")
+    print("train: losses " + json.dumps([round(x, 6) for x in losses]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite training loss")
+    groups_nonzero = {}
+    for g in param_groups(task.model, radnerf_label_fn, {"net": 1, "grid": 1, "att": 1}):
+        groups_nonzero[g["name"]] = sum(
+            int(p.grad is not None and bool((p.grad != 0).any())) for p in g["params"]
+        )
+        if not groups_nonzero[g["name"]]:
+            raise AssertionError(f"parameter group {g['name']} has a zero gradient on the card")
+    print(f"train: parameters with a non-zero gradient on the card, by group: {groups_nonzero}")
+    sweep_steps = [i for i in range(TRAIN_STEPS) if i % interval == 0]
+    plain = [t for i, t in enumerate(step_ms) if i % interval and i > 1]
+    median = sorted(plain)[len(plain) // 2]
+    n_rays = int(task.cfg["n_rays"])
+    mspr = task.render_kwargs()["mean_samples_per_ray"]
+    Mc = min(int(-(-n_rays * mspr // 1024) * 1024), n_rays * int(task.cfg["max_steps"]))
+    print(f"train: median ms/step {median:.3f} (steps without a sweep, first two left out); "
+          f"sweep steps {[round(step_ms[i], 3) for i in sweep_steps]} ms; "
+          f"{n_rays / median * 1e3:.0f} rays/s; {TRAIN_STEPS} steps in {wall:.3f} s")
+    print(f"train: sample capacity Mc={Mc} (mean_samples_per_ray bucket {mspr}, "
+          f"lattice_K {task.render_kwargs()['lattice_K']}); mean samples/ray per step "
+          + json.dumps([round(x, 3) for x in spr]))
+
+    prof = profile_train_step(task, next(batches), out_dir, median)
+    print(f"train: step device time {prof['device_busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
+          f"wall (idle share {prof['idle_share']:.3f}, {prof['n_device_ops']} device "
+          "operations); stage spans ms "
+          + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
+    grad_check = check_grads_vs_cpu(task, next(batches))
+
+    # the kernel sites of one step without a sweep and of one sweep
+    names = group_names(task.model)
+    calls = capture_calls(lambda: task.train_step(next(batches)))
+    saved_step = task._step
+    task._step = interval * (saved_step // interval + 1)
+    calls += capture_calls(task.maybe_update_occ)
+    task._step = saved_step
+    sites = name_sites(calls, names, "train", sweep_chunk=task.grid_size**3 // chunks)
+    record = {"step_ms": step_ms, "median_step_ms": median, "losses": losses,
+              "mean_samples_per_ray": spr, "sample_capacity": Mc,
+              "rays_per_s": n_rays / median * 1e3, "grad_check": grad_check,
+              "nonzero_grad_params": groups_nonzero, "profile": prof}
+    return record, launches, sites
+
+
+def profile_train_step(task, batch, out_dir: str, wall_ms: float) -> dict:
+    """One step without a sweep: the spans of forward, backward and
+    optimizer on the device timeline (CUDA events, an unprofiled step), the
+    render's ``gf::`` stage spans and the device time by kernel
+    (``torch.profiler``, a second step; table in
+    ``out_dir/train_step_profile.txt``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def staged():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        dbatch = task.device_batch(batch, task._step)
+        noises = torch.rand(dbatch["rays_o"].shape[0], generator=task.generator,
+                            device=task.device)
+        task.optimizer.zero_grad(set_to_none=True)
+        loss, _ = task.loss_fn(dbatch, noises, train=True)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        task.optimizer.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        return {f"{n}_span": ev[i].elapsed_time(ev[i + 1])
+                for i, n in enumerate(("forward", "backward", "optim"))}
+
+    staged()
+    spans = staged()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        staged()
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in _device_events(prof)),
+        key=lambda k: -k[1],
+    )
+    stages = {e.key: e.device_time_total / 1e3
+              for e in prof.key_averages() if e.key.startswith("gf::")}
+    stages.update(spans)
+    busy = sum(k[1] for k in kernels)
+    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
+        f.write(f"steady step wall {wall_ms:.3f} ms, device busy {busy:.3f} ms\n")
+        for name, ms in sorted(stages.items(), key=lambda s: -s[1]):
+            f.write(f"stage {name:24s} {ms:9.3f} ms\n")
+        for name, ms, n in kernels:
+            f.write(f"{ms:9.3f} ms {n:5d}x {name}\n")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms), "stages_ms": stages,
+            "n_device_ops": sum(k[2] for k in kernels),
+            "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:15]]}
+
+
 def main() -> int:
     import torch
 
@@ -271,10 +708,6 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
-    import numpy as np
-
-    from geneface_tpu_torch.inference import RADNeRFInfer
-    from geneface_tpu_torch.ops import scatter as sc
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -295,101 +728,19 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     try:
         cfg = write_scene(root, HW, N_FRAMES)
-        infer = RADNeRFInfer(cfg)  # cuda, bf16 MLPs
-
-        # warm-up (first launches, allocator), then the counted main path
-        infer.render_frames(1)
-        torch.cuda.synchronize()
-        for k in sc.LAUNCHES:
-            sc.LAUNCHES[k] = 0
-        t1 = time.perf_counter()
-        frames = infer.render_frames(RENDER_FRAMES)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t1
-        launches = dict(sc.LAUNCHES)
-
-        if frames.shape != (RENDER_FRAMES, HW, HW, 3) or frames.dtype != np.uint8:
-            raise AssertionError(f"frames {frames.shape} {frames.dtype}")
-        if launches["scatter_add_rows"] != 2 * RENDER_FRAMES:
-            raise AssertionError(f"scatter_add_rows launched {launches} times")
-        last = infer.last_render
-        if not torch.isfinite(last["rgb_map"]).all():
-            raise AssertionError("non-finite pixels")
-        bg = torch.as_tensor(infer.dataset[RENDER_FRAMES - 1]["bg_torso_img"], device="cuda")
-        if float((last["rgb_map"] - bg).abs().max()) < 0.02:
-            raise AssertionError("the head does not show against the background")
-
-        # steady-state per-frame time (per-video constants already built)
-        def one_frame():
-            return infer.render_frame(0)["rgb_map"]
-
-        times = []
-        for _ in range(5):
-            torch.cuda.synchronize()
-            ts = time.perf_counter()
-            one_frame()
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - ts) * 1e3)
-        C = infer.ray_capacity
-        Mc = -(-C * int(cfg["mean_samples_per_ray"]) // 1024) * 1024
-        n_samples = last["n_samples"].float()
-        print(f"ms/frame: {wall / RENDER_FRAMES * 1e3:.3f} (render_frames of "
-              f"{RENDER_FRAMES}, per-video set-up included); steady render_frame "
-              f"median {sorted(times)[2]:.3f} ms [{smi}]")
-        print(f"ray capacity C={C}, sample capacity Mc={Mc}, mean samples/ray "
-              f"{float(n_samples.mean()):.3f} over the C rendered rays "
-              f"(hit rays: {int((n_samples > 0).sum())})")
-
-        # frame vs the port's plain CPU path (same checkpoint, same dtype)
-        cpu = RADNeRFInfer(cfg, device="cpu")
-        cpu.prepare()
-        if cpu.ray_capacity != C:
-            raise AssertionError(f"capacity {cpu.ray_capacity} on CPU vs {C}")
-        ref = cpu.render_frame(0)["rgb_map"]
-        gpu = infer.render_frame(0)["rgb_map"].cpu()
-        diff = (gpu - ref).abs()
-        print(f"frame 0 vs CPU plain path: max abs {float(diff.max()):.3e}, "
-              f"mean abs {float(diff.mean()):.3e}")
-        # bf16 MLPs on both sides: a hidden unit may round the other way
-        if float(diff.max()) > 1e-3 or float(diff.mean()) > 1e-6:
-            raise AssertionError("GPU frame disagrees with the CPU plain path")
-
-        # K1 against its plain version at both call sites of a real frame
-        calls = capture_scatter_calls(infer, 0)
-        if len(calls) != 2:
-            raise AssertionError(f"expected 2 scatter calls per frame, got {len(calls)}")
-        sites = []
-        for (rows, upd, n_rows), name, exact in zip(
-            calls, ("composite_sums", "frame_scatter"), (False, True)
-        ):
-            s = measure_scatter_site(rows, upd, n_rows, exact)
-            s["site"] = name
-            sites.append(s)
-        bytes_ms = sum(s["bytes_ms"] for s in sites)
-        ops_ms = sum(s["ops_ms"] for s in sites)
-        k1 = {
-            "name": "scatter_add_rows",
-            "route": "cuda",
-            "source": "geneface_tpu_torch/csrc/scatter_add_rows.cu",
-            "replaces": "geneface_tpu/ops/pallas_scatter.py:79",
-            "launches": launches["scatter_add_rows"],
-            "max_abs_err": max(s["max_abs_err"] for s in sites),
-            "ms": sum(s["ms"] for s in sites),
-            "plain_ms": sum(s["plain_ms"] for s in sites),
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": sum(s["library_ms"] for s in sites),
-            "per_frame_of": "both call sites of one frame",
-            "sites": sites,
-        }
-        kernels_line = {"kernels": [k1]}
-        record = {"gpu": smi, "ms_per_frame": wall / RENDER_FRAMES * 1e3,
-                  "steady_ms": times, "ray_capacity": C, "sample_capacity": Mc,
-                  **kernels_line}
-        record["profile"] = prof = profile_frame(infer, out_dir, sorted(times)[2])
-        print(f"frame device time {prof['device_busy_ms']:.3f} ms of "
-              f"{prof['steady_ms']:.3f} ms wall (idle share {prof['idle_share']:.3f}); "
-              "stages ms " + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
+        t1 = time.time()
+        serve, serve_launches, serve_sites = serve_phase(cfg, out_dir)
+        t2 = time.time()
+        train, train_launches, train_sites = train_phase(cfg, out_dir)
+        t3 = time.time()
+        per_call = {s: 16 for s in train_sites if s.startswith("sweep.")}
+        sites = measure_sites({**serve_sites, **train_sites}, per_call)
+        print(f"phases: serve {t2 - t1:.1f} s, train {t3 - t2:.1f} s, "
+              f"kernel sites {time.time() - t3:.1f} s")
+        launches = {"serve": serve_launches, "train": train_launches}
+        kernels_line = {"kernels": [kernel_entry("scatter_add_rows", sites, launches),
+                                    kernel_entry("gather_rows", sites, launches)]}
+        record = {"gpu": smi, "serve": serve, "train": train, **kernels_line}
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(json.dumps(kernels_line))

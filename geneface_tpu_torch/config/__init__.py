@@ -1,3 +1,3 @@
-from geneface_tpu_torch.config.config import Config, load_config
+from geneface_tpu_torch.config.config import Config, load_config, parse_overrides, save_config
 
-__all__ = ["Config", "load_config"]
+__all__ = ["Config", "load_config", "parse_overrides", "save_config"]

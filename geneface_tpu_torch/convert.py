@@ -19,7 +19,7 @@ import re
 
 import numpy as np
 
-__all__ = ["flax_to_state_dict", "state_dict_to_flax"]
+__all__ = ["flax_path", "flax_to_state_dict", "state_dict_to_flax"]
 
 _AUDIO_DENSE = {
     ("cond_prenet", "Dense_0"): "fc1",
@@ -71,32 +71,36 @@ def flax_to_state_dict(params: dict) -> dict:
     return {k: np.array(v, order="C") for k, v in sd.items()}
 
 
+def flax_path(name: str) -> tuple:
+    """The flax parameter path of a ``state_dict`` entry (without the outer
+    ``"params"`` level): e.g. ``"cond_att_net.fc.weight"`` →
+    ``("cond_att_net", "Dense_0", "kernel")``."""
+    parts = name.split(".")
+    top = parts[0]
+    if top in ("pos_embeddings", "ambient_embeddings"):
+        return (top, parts[1])
+    if top == "individual_embeddings":
+        return (top,)
+    if top in ("cond_prenet", "cond_att_net") and parts[1] == "convs":
+        return (top, f"Conv1dK3_{parts[2]}", "kernel" if parts[3] == "weight" else "bias")
+    if top in ("cond_prenet", "cond_att_net"):
+        return (top, _AUDIO_DENSE_INV[parts[1]], "kernel" if parts[2] == "weight" else "bias")
+    if top in ("ambient_net", "sigma_net", "color_net"):
+        return (top, f"Dense_{parts[2]}", "kernel")
+    raise KeyError(f"unexpected state_dict entry {name}")
+
+
 def state_dict_to_flax(state_dict: dict) -> dict:
     """Inverse of :func:`flax_to_state_dict` → ``{"params": tree}``."""
     tree: dict = {}
-
-    def put(path, value):
+    for name, t in state_dict.items():
+        v = t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+        path = flax_path(name)
+        if path[-1] == "kernel":
+            # Conv1d [Cout, Cin, 3] -> [3, Cin, Cout]; Linear [out, in] -> [in, out]
+            v = v.transpose(2, 1, 0) if v.ndim == 3 else v.T
         node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.array(value, order="C")
-
-    for name, t in state_dict.items():
-        v = t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
-        parts = name.split(".")
-        top = parts[0]
-        if top in ("pos_embeddings", "ambient_embeddings"):
-            put((top, parts[1]), v)
-        elif top == "individual_embeddings":
-            put((top,), v)
-        elif top in ("cond_prenet", "cond_att_net") and parts[1] == "convs":
-            leaf = "kernel" if parts[3] == "weight" else "bias"
-            put((top, f"Conv1dK3_{parts[2]}", leaf), v.transpose(2, 1, 0) if leaf == "kernel" else v)
-        elif top in ("cond_prenet", "cond_att_net"):
-            leaf = "kernel" if parts[2] == "weight" else "bias"
-            put((top, _AUDIO_DENSE_INV[parts[1]], leaf), v.T if leaf == "kernel" else v)
-        elif top in ("ambient_net", "sigma_net", "color_net"):
-            put((top, f"Dense_{parts[2]}", "kernel"), v.T)
-        else:
-            raise KeyError(f"unexpected state_dict entry {name}")
+        node[path[-1]] = np.array(v, order="C")
     return {"params": tree}

@@ -1,15 +1,21 @@
-"""RAD-NeRF per-video frame store, inference side (port of
-``geneface_tpu/data/radnerf_dataset.py`` with ``training=False``).
+"""RAD-NeRF per-video frame store (port of
+``geneface_tpu/data/radnerf_dataset.py``).
 
-Reads the binarizer's ``trainval_dataset.npy``, converts poses to the ngp
-convention, optionally smooths the camera path, and serves full-frame rays
-plus the background the head is composited over. Training-time ray sampling
-and the native batch loader are not part of the inference port.
+Reads the binarizer's ``trainval_dataset.npy`` and converts poses to the ngp
+convention. For inference it smooths the camera path and serves full-frame
+rays plus the background the head is composited over. For training it
+serves random ray batches drawn from its seeded ``RandomState``: a light
+batch of pixel indices, the face rect and uint8 pixels (rays are rebuilt on
+the device, as the JAX package's default ``device_rays`` does), one frame
+per step in a shuffled, prefetched epoch order. The native C++ batch loader
+of the JAX package is not ported: the numpy path gives the same batches.
 """
 
 from __future__ import annotations
 
 import os
+import queue
+import threading
 
 import numpy as np
 
@@ -56,11 +62,21 @@ def get_cond_window(conds: np.ndarray, index: int, smo_win_size: int) -> np.ndar
     return win
 
 
-class RADNeRFDataset:
-    """Inference frame store; ``prefix`` ∈ {train, val, trainval}."""
+def _to_u8(a: np.ndarray) -> np.ndarray:
+    return np.clip(a * 255.0 + 0.5, 0, 255).astype(np.uint8)
 
-    def __init__(self, prefix: str, data_dir: str, cfg):
+
+class RADNeRFDataset:
+    """``prefix`` ∈ {train, val, trainval}; ``training`` (default: the
+    train split) selects random ray batches over full frames."""
+
+    def __init__(self, prefix: str, data_dir: str, cfg, training: bool | None = None):
         self.cfg = cfg
+        self.training = training if training is not None else prefix == "train"
+        self.rng = np.random.RandomState(cfg.get("seed", 9999))
+        # epoch shuffling draws from its own stream, so the prefetching
+        # iterator sees the same values as the synchronous path
+        self.order_rng = np.random.RandomState(cfg.get("seed", 9999) + 1)
         ds = np.load(
             os.path.join(data_dir, "trainval_dataset.npy"), allow_pickle=True
         ).tolist()
@@ -93,7 +109,7 @@ class RADNeRFDataset:
         )
         if np.isnan(self.poses).any():
             raise ValueError("NaN in c2w poses — check the face tracker output")
-        if cfg.get("infer_smooth_camera_path", True):
+        if not self.training and cfg.get("infer_smooth_camera_path", True):
             self.poses = smooth_camera_path(
                 self.poses, cfg.get("infer_smooth_camera_path_kernel_size", 7)
             )
@@ -119,18 +135,22 @@ class RADNeRFDataset:
     def __len__(self):
         return len(self.samples)
 
-    def __getitem__(self, idx: int) -> dict:
-        sample = self.samples[idx]
-        rays = get_rays(self.poses[idx], self.intrinsics, self.H, self.W)
+    def _bg_torso(self, sample) -> np.ndarray:
+        """The torso composited onto the background: the head's background."""
         torso = np.asarray(sample["torso_img"], np.float32)
         if torso.max() > 1.5:
             torso = torso / 255.0
-        # torso composited onto bg is the head's background
         if torso.shape[-1] == 4:
             alpha = torso[..., 3:]
-            bg_torso = torso[..., :3] * alpha + self.bg_img * (1 - alpha)
-        else:
-            bg_torso = torso
+            return torso[..., :3] * alpha + self.bg_img * (1 - alpha)
+        return torso
+
+    def __getitem__(self, idx: int) -> dict:
+        if self.training:
+            return self._train_item(idx)
+        sample = self.samples[idx]
+        rays = get_rays(self.poses[idx], self.intrinsics, self.H, self.W)
+        bg_torso = self._bg_torso(sample)
         return {
             "H": self.H,
             "W": self.W,
@@ -146,3 +166,72 @@ class RADNeRFDataset:
             "bg_img": self.bg_img.reshape(-1, 3),
             "bg_torso_img": bg_torso.reshape(-1, 3).astype(np.float32),
         }
+
+    def _train_item(self, idx: int) -> dict:
+        """One training batch of ``n_rays`` random pixels of frame ``idx``."""
+        cfg = self.cfg
+        sample = self.samples[idx]
+        inds = get_rays(
+            self.poses[idx], self.intrinsics, self.H, self.W,
+            n_rays=cfg.get("n_rays", 65536), rng=self.rng,
+        )["inds"]
+        out = {
+            "H": self.H,
+            "W": self.W,
+            "idx": int(sample.get("idx", idx)),
+            "pose_matrix": self.poses[idx],
+            "cond_wins": get_cond_window(self.conds, idx, cfg.get("smo_win_size", 5)),
+        }
+        gt = np.asarray(sample["gt_img"], np.float32)
+        if gt.max() > 1.5:
+            gt = gt / 255.0
+        # a light batch: rays, background coords and the face mask are
+        # rebuilt on the device from the pixel indices
+        out["inds"] = inds.astype(np.int32)
+        out["face_rect"] = np.asarray(sample["face_rect"], np.float32)
+        out["gt_img_u8"] = _to_u8(gt.reshape(-1, gt.shape[-1])[:, :3][inds])
+        out["bg_img_u8"] = _to_u8(self.bg_img.reshape(-1, 3)[inds])
+        out["bg_torso_img_u8"] = _to_u8(self._bg_torso(sample).reshape(-1, 3)[inds])
+        return out
+
+    def iter_epochs(self):
+        """Infinite per-frame iterator in shuffled epoch order. One daemon
+        thread builds the next batch while the caller's step runs; item
+        order and draws are those of a synchronous loop."""
+
+        def indices():
+            while True:
+                order = np.arange(len(self))
+                self.order_rng.shuffle(order)
+                yield from order
+
+        it = indices()
+        jobs: queue.Queue = queue.Queue(maxsize=2)
+        results: queue.Queue = queue.Queue(maxsize=2)
+
+        def worker():
+            while True:
+                i = jobs.get()
+                if i is None:
+                    return
+                try:
+                    results.put((self[int(i)], None))
+                except Exception as e:  # raised again in the consumer
+                    results.put((None, e))
+                    return
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            jobs.put(int(next(it)))
+            for i in it:
+                jobs.put(int(i))
+                item, err = results.get()
+                if err is not None:
+                    raise err
+                yield item
+        finally:
+            try:
+                jobs.put_nowait(None)
+            except queue.Full:
+                pass

@@ -15,10 +15,14 @@ import shutil
 import subprocess
 import threading
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "build_kernel", "load_kernel"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "LAUNCHES", "build_kernel", "load_kernel"]
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
+
+#: kernel name -> launches so far; each wrapper adds one where it launches
+#: its kernel and nowhere else (callers that count a run reset it)
+LAUNCHES = {"scatter_add_rows": 0, "gather_rows": 0}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -4,11 +4,14 @@ from geneface_tpu_torch.models.radnerf.radnerf import COND_IN_DIMS, RADNeRF
 from geneface_tpu_torch.models.radnerf.renderer import (
     OccupancyState,
     OccupancyView,
+    init_occupancy,
     kdop_hit,
     make_aabb,
+    mark_untrained_grid,
     occupancy_view,
     occupied_kdop,
     render_rays_radnerf,
+    update_extra_state,
 )
 
 __all__ = [
@@ -16,6 +19,9 @@ __all__ = [
     "RADNeRF",
     "OccupancyState",
     "OccupancyView",
+    "init_occupancy",
+    "mark_untrained_grid",
+    "update_extra_state",
     "kdop_hit",
     "make_aabb",
     "occupancy_view",

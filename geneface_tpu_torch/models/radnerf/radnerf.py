@@ -197,7 +197,10 @@ class RADNeRF(nn.Module):
 
     def _ambient_and_pos(self, position, cond_feat, tables):
         x01 = (position + self.bound) / (2 * self.bound)
-        pos_feat = fused_grid_encode(x01, tables["pos"], self.pos_fused_meta)
+        # the samples come from stop-gradient rays: no position input grads
+        pos_feat = fused_grid_encode(
+            x01, tables["pos"], self.pos_fused_meta, need_input_grad=False
+        )
         logits = self.ambient_net([pos_feat, cond_feat.reshape(1, -1)])
         tanhs = [torch.tanh(l.float()) for l in logits]
         amb01 = tuple((t + 1.0) / 2.0 for t in tanhs)

@@ -1,17 +1,25 @@
 """Occupancy state, k-DOP ray cull and the compact render path (port of
-``geneface_tpu/models/radnerf/renderer.py``, inference side).
+``geneface_tpu/models/radnerf/renderer.py``).
 
 A frame runs: the 13-slab k-DOP cull of the full frame; the lattice march of
 the kept rays; waterfilled compaction; one ``[Mc, 8]`` record gather; the
 field; front-to-back compositing in compact space; and the scatter of the
 kept rays back to the frame. The per-ray sums of the composite and the frame
 scatter are both row scatter-adds, i.e. the CUDA kernel behind
-:func:`geneface_tpu_torch.ops.scatter_add_rows`.
+:func:`geneface_tpu_torch.ops.scatter_add_rows`, which is differentiable
+(its backward is the row gather kernel).
+
+Training renders a ray batch without the cull, with the march jittered by
+per-ray ``noises`` and stop-gradient rays; the occupancy state starts from
+:func:`init_occupancy` + :func:`mark_untrained_grid` and is refreshed by
+:func:`update_extra_state`.
 """
 
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
+
+import math
 
 import numpy as np
 import torch
@@ -19,6 +27,7 @@ from torch.profiler import record_function
 
 from geneface_tpu_torch.ops import (
     compact_gather,
+    dilate_grid3d,
     make_compact_plan,
     march_rays_lattice,
     near_far_from_aabb,
@@ -28,9 +37,13 @@ from geneface_tpu_torch.ops import (
     segmented_cumsum,
     waterfill_valid,
 )
+from geneface_tpu_torch.ops.raymarch import fma_f32
 
 __all__ = [
     "OccupancyState",
+    "init_occupancy",
+    "mark_untrained_grid",
+    "update_extra_state",
     "make_aabb",
     "occupied_kdop",
     "kdop_hit",
@@ -61,6 +74,88 @@ def _cell_centers(grid_size: int) -> np.ndarray:
     xx, yy, zz = np.meshgrid(r, r, r, indexing="ij")
     coords = np.stack([xx, yy, zz], axis=-1).reshape(-1, 3)
     return 2.0 * coords / (grid_size - 1) - 1.0
+
+
+def cascade_of(bound: float) -> int:
+    return 1 + math.ceil(math.log2(max(bound, 1.0)))
+
+
+def init_occupancy(grid_size: int, bound: float, device=None) -> OccupancyState:
+    """All-zero density grid, empty occupancy, zero mean density."""
+    C = cascade_of(bound)
+    return OccupancyState(
+        density_grid=torch.zeros(C, grid_size**3, device=device),
+        occ_grid=torch.zeros(C, grid_size, grid_size, grid_size, dtype=torch.bool, device=device),
+        mean_density=torch.zeros((), device=device),
+    )
+
+
+def mark_untrained_grid(
+    occ: OccupancyState,
+    poses: np.ndarray,  # [B, 4, 4] c2w
+    intrinsics,  # (fx, fy, cx, cy)
+    grid_size: int,
+    bound: float,
+) -> OccupancyState:
+    """Mark the cells outside every training camera's frustum with density
+    -1. Host numpy, once at start-up."""
+    fx, fy, cx, cy = [float(v) for v in intrinsics]
+    poses = np.asarray(poses, np.float32)
+    C = occ.density_grid.shape[0]
+    world = _cell_centers(grid_size)
+    grid = occ.density_grid.detach().cpu().numpy().copy()
+    for cas in range(C):
+        cas_bound = min(2**cas, bound)
+        half_cell = cas_bound / grid_size
+        pts = world * (cas_bound - half_cell)
+        covered = np.zeros(len(pts), np.int64)
+        for head in range(0, len(poses), 64):
+            p = poses[head : head + 64]
+            rel = pts[None, :, :] - p[:, None, :3, 3]
+            cam = np.einsum("bnd,bdk->bnk", rel, p[:, :3, :3])  # world -> cam
+            mask = (
+                (cam[..., 2] > 0)
+                & (np.abs(cam[..., 0]) < cx / fx * cam[..., 2] + half_cell * 2)
+                & (np.abs(cam[..., 1]) < cy / fy * cam[..., 2] + half_cell * 2)
+            )
+            covered += mask.sum(0)
+        grid[cas, covered == 0] = -1.0
+    return occ._replace(
+        density_grid=torch.as_tensor(grid, device=occ.density_grid.device)
+    )
+
+
+@torch.no_grad()
+def update_extra_state(
+    density_fn: Callable,  # xyz [M, 3] -> sigma [M]
+    occ: OccupancyState,
+    noise: torch.Tensor,  # [cascade, H³, 3] uniform in [0, 1)
+    *,
+    grid_size: int,
+    bound: float,
+    density_thresh: float,
+    decay: float = 0.95,
+    chunks: int = 16,
+) -> OccupancyState:
+    """Density sweep at jittered cell centres (in ``chunks`` field calls) →
+    3³ max-pool dilation → decayed-max EMA → threshold at
+    ``min(mean density, density_thresh)``. The jitter arrives as ``noise``.
+    """
+    C = occ.density_grid.shape[0]
+    H = grid_size
+    world = torch.as_tensor(_cell_centers(H), device=occ.density_grid.device)
+    rows = []
+    for cas in range(C):
+        cas_bound = min(2**cas, bound)
+        half_cell = cas_bound / H
+        pts = world * (cas_bound - half_cell) + (noise[cas] * 2 - 1) * half_cell
+        rows.append(torch.cat([density_fn(c).float() for c in pts.chunk(chunks)]))
+    tmp = dilate_grid3d(torch.stack(rows).reshape(C, H, H, H)).reshape(C, -1)
+    valid = (occ.density_grid >= 0) & (tmp >= 0)
+    density = torch.where(valid, torch.maximum(occ.density_grid * decay, tmp), occ.density_grid)
+    mean_density = density.clamp(min=0.0).mean()
+    thresh = torch.clamp(mean_density, max=density_thresh)
+    return OccupancyState(density, (density > thresh).reshape(C, H, H, H), mean_density)
 
 
 #: k-DOP direction set: 3 axes + 6 face diagonals + 4 body diagonals
@@ -151,14 +246,17 @@ def render_rays_radnerf(
     T_thresh: float = 1e-4,
     ray_capacity: int | None = None,
     cull_kdop: tuple | None = None,
+    noises: torch.Tensor | None = None,
 ) -> dict:
     """Lattice march + compact field eval + composite + background.
 
     With ``ray_capacity`` (and ``cull_kdop``) only the first
     ``ray_capacity`` rays that meet the k-DOP are rendered; overflow rays
-    render as background, as in the JAX renderer. The march is not
-    jittered (the inference setting). Returns rgb_map [N, 3], depth_map,
-    weights_sum, ambient_sum [N] and ``n_samples`` [rendered rays].
+    render as background, as in the JAX renderer. ``noises [N]`` in [0, 1)
+    jitter the march (training); ``None`` marches unjittered (inference).
+    Rays carry no gradient. Returns rgb_map [N, 3], depth_map, weights_sum,
+    ambient_sum [N], ``n_samples`` [rendered rays] and ``march_span`` (the
+    lattice steps any ray needed, the signal that retunes ``lattice_K``).
     """
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -179,7 +277,8 @@ def render_rays_radnerf(
             idx[: found.shape[0]] = found
             safe = idx.clamp(max=N - 1)
         inner = render_rays_radnerf(
-            field_fn, rays_o[safe], rays_d[safe], occ, bg_color=0.0, **common
+            field_fn, rays_o[safe], rays_d[safe], occ, bg_color=0.0,
+            noises=None if noises is None else noises[safe], **common,
         )
         with record_function("gf::frame_scatter"):
             packed = torch.cat(
@@ -201,12 +300,16 @@ def render_rays_radnerf(
             "weights_sum": ws,
             "ambient_sum": amb,
             "n_samples": inner["n_samples"],
+            "march_span": inner["march_span"],
         }
 
     with record_function("gf::march"):
+        rays_o, rays_d = rays_o.detach(), rays_d.detach()
         nears, fars = near_far_from_aabb(rays_o, rays_d, make_aabb(bound, dev), min_near)
+        if noises is None:
+            noises = torch.zeros(N, device=dev)
         march = march_rays_lattice(
-            rays_o, rays_d, occ.blocks, occ.tight, nears, fars, torch.zeros(N, device=dev),
+            rays_o, rays_d, occ.blocks, occ.tight, nears, fars, noises,
             bound=bound, max_steps=max_steps, grid_size=grid_size, lattice_K=lattice_K,
         )
     with record_function("gf::compact"):
@@ -218,7 +321,7 @@ def render_rays_radnerf(
         # ONE [Mc, 8] record gather for everything per sample
         ro = rays_o.float()[:, None, :]
         rd = rays_d.float()[:, None, :]
-        xyz_slab = ro + march.ts[..., None] * rd  # [N, S, 3]
+        xyz_slab = fma_f32(march.ts[..., None], rd, ro)  # [N, S, 3], one rounding
         rec = torch.cat(
             [
                 march.dts[..., None],
@@ -262,4 +365,5 @@ def render_rays_radnerf(
         "weights_sum": weights_sum,
         "ambient_sum": sums[:, 5],
         "n_samples": plan.n,
+        "march_span": march.span,
     }

@@ -20,7 +20,15 @@ from geneface_tpu_torch.ops.raymarch import (
     occupied_cell_aabb,
     pack_occ_blocks,
 )
-from geneface_tpu_torch.ops.scatter import scatter_add_rows, scatter_add_rows_plain
+from geneface_tpu_torch.ops.morton import dilate_grid3d
+from geneface_tpu_torch.ops.scatter import (
+    gather_rows,
+    gather_rows_plain,
+    launch_gather_rows,
+    launch_scatter_add_rows,
+    scatter_add_rows,
+    scatter_add_rows_plain,
+)
 
 __all__ = [
     "trunc_exp",
@@ -41,6 +49,11 @@ __all__ = [
     "near_far_from_aabb",
     "occupied_cell_aabb",
     "pack_occ_blocks",
+    "dilate_grid3d",
+    "gather_rows",
+    "gather_rows_plain",
+    "launch_gather_rows",
+    "launch_scatter_add_rows",
     "scatter_add_rows",
     "scatter_add_rows_plain",
 ]

@@ -1,4 +1,4 @@
-"""Fused multi-resolution grid encoder, forward (port of
+"""Fused multi-resolution grid encoder, forward and backward (port of
 ``geneface_tpu/ops/fused_grid.py``).
 
 The parameter layout is the JAX package's: level 0 (and, with
@@ -7,11 +7,16 @@ The parameter layout is the JAX package's: level 0 (and, with
 the ``K = 2^D`` corner features of every level of the group (``[R_g, G*K*C]``),
 keyed by the prime-xor hash of the group's finest level's block.
 
-The function is computed directly: gather one row per (sample, group), weight
-each level's ``K`` corners by its own interpolation weights, and sum over
-corners. The TPU's selector-matmul lane layout is not needed here. Inputs
-outside [0, 1] give zeros. Forward only: training (and the grid backward)
-is not part of this slice.
+The function is computed directly: gather one row per (sample, group) with
+the K8 kernel, weight each level's ``K`` corners by its own interpolation
+weights, and sum over corners. The TPU's selector-matmul lane layout is not
+needed here. Inputs outside [0, 1] give zeros. The backward scatters the
+table gradients with one K1 launch per group into the fast-view tables;
+autograd of :func:`dense_view` carries a dense group's gradient on to its
+canonical table. The forward saves the row indices and, for the input
+gradients, the gathered rows; the corner weights are recomputed from the
+inputs (``[M, G*K]``, an eighth of the channel-expanded ``[M, G*K*C]``
+residual the JAX package saves).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from geneface_tpu_torch.ops.encoders import HASH_PRIMES, GridMeta
+from geneface_tpu_torch.ops.scatter import launch_gather_rows, launch_scatter_add_rows
 
 __all__ = ["FusedGridMeta", "make_fused_grid_meta", "dense_view", "fused_grid_encode"]
 
@@ -143,29 +149,33 @@ def dense_view(table: torch.Tensor, fmeta: FusedGridMeta, gi: int) -> torch.Tens
 
 
 def _fracs(comps, meta: GridMeta, lvl: int):
-    """Per-axis integer base cell and interpolation fraction of one level."""
+    """Per-axis integer base cell, interpolation fraction and, per axis,
+    d(fraction)/d(input) of one level."""
     scale = _level_scale(meta, lvl)
     off = 0.0 if meta.align_corners else 0.5
-    base, frac = [], []
+    base, frac, chain = [], [], []
     for c in comps:
         pos = c * scale + off
         pf = torch.floor(pos)
         f = pos - pf
         if meta.interpolation == "smoothstep":
+            chain.append(6.0 * f * (1.0 - f) * scale)
             f = f * f * (3.0 - 2.0 * f)
+        else:
+            chain.append(scale)
         base.append(pf.to(torch.int64))
         frac.append(f)
-    return base, frac
+    return base, frac, chain
 
 
 def _group_rows(comps, fmeta: FusedGridMeta, gi: int) -> torch.Tensor:
-    """Row of group ``gi`` per sample: parity-block address for dense
+    """int32 row of group ``gi`` per sample: parity-block address for dense
     groups; for hash groups the prime-xor hash (wrapping uint32, computed in
     int64 and masked) of the finest level's block coords and parity."""
     meta = fmeta.base
     D = meta.input_dim
     lvl = fmeta.groups[gi][-1] if fmeta.modes[gi] == "hash" else fmeta.groups[gi][0]
-    base, _ = _fracs(comps, meta, lvl)
+    base = _fracs(comps, meta, lvl)[0]
     pbits = [b & 1 for b in base]
     bcoords = [(b + p) >> 1 for b, p in zip(base, pbits)]
     parity = pbits[0]
@@ -177,56 +187,141 @@ def _group_rows(comps, fmeta: FusedGridMeta, gi: int) -> torch.Tensor:
         for d in range(1, D):
             blk = blk + bcoords[d] * stride
             stride *= bside
-        return parity * (bside**D) + blk
+        return (parity * (bside**D) + blk).to(torch.int32)
     h = (bcoords[0] * HASH_PRIMES[0]) & _U32
     for d in range(1, D):
         h = h ^ ((bcoords[d] * HASH_PRIMES[d]) & _U32)
     h = h ^ ((parity * HASH_PRIMES[min(D, 6)]) & _U32)
-    return h % fmeta.n_rows[gi]
+    return (h % fmeta.n_rows[gi]).to(torch.int32)
+
+
+def _axis_weights(comps, meta: GridMeta, levels, K: int):
+    """Per-axis corner weights ``D x [M, G, K]`` of a run of levels (corner
+    bit ``d`` of ``k`` picks ``frac_d`` over ``1 - frac_d``) and the
+    per-axis chain factors ``D x [M, G]`` (or ``[G]`` for linear)."""
+    D = meta.input_dim
+    per_level = [_fracs(comps, meta, lvl) for lvl in levels]
+    bits = torch.arange(K, device=comps[0].device)
+    w_ax, chain = [], []
+    for d in range(D):
+        fd = torch.stack([pl[1][d] for pl in per_level], dim=-1)[..., None]  # [M, G, 1]
+        w_ax.append(torch.where(((bits >> d) & 1) == 1, fd, 1.0 - fd))
+        cs = [pl[2][d] for pl in per_level]
+        chain.append(
+            torch.stack(cs, dim=-1) if torch.is_tensor(cs[0])
+            else torch.tensor(cs, dtype=torch.float32, device=comps[0].device)
+        )
+    return w_ax, chain
+
+
+def _prod(ts):
+    out = ts[0]
+    for t in ts[1:]:
+        out = out * t
+    return out
+
+
+class _FusedGridEncode(torch.autograd.Function):
+    """Forward: one K8 row gather per group, then the corner-weighted sum.
+    Backward (``_fge_bwd`` of the JAX package): the table gradients
+    ``upd = w · g`` (corner weights times the output gradient, broadcast
+    over channels) through one K1 row scatter per group into the group's
+    fast-view table, and, when asked, the input gradients from the saved
+    gathered rows (no re-gather)."""
+
+    @staticmethod
+    def forward(ctx, fmeta, need_input_grad, *args):
+        meta = fmeta.base
+        D, C = meta.input_dim, meta.level_dim
+        K = 1 << D
+        comps_raw, tables = args[:D], args[D:]
+        oob = torch.zeros_like(comps_raw[0], dtype=torch.bool)
+        for c in comps_raw:
+            oob = oob | (c < 0.0) | (c > 1.0)
+        comps = [c.clamp(0.0, 1.0) for c in comps_raw]
+        M = comps[0].shape[0]
+        input_grad = bool(need_input_grad) and any(ctx.needs_input_grad[2 : 2 + D])
+        outs, rows_idx, rows_saved = [], [], []
+        for gi, g in enumerate(fmeta.groups):
+            G = len(g)
+            row = _group_rows(comps, fmeta, gi)
+            rows = launch_gather_rows(tables[gi].contiguous(), row).reshape(M, G, K, C)
+            w = _prod(_axis_weights(comps, meta, g, K)[0])  # [M, G, K]
+            outs.append((w[..., None] * rows).sum(dim=2).reshape(M, G * C))
+            rows_idx.append(row)
+            if input_grad:
+                rows_saved.append(rows)
+        out = torch.where(oob[:, None], 0.0, torch.cat(outs, dim=-1))
+        ctx.fmeta = fmeta
+        ctx.input_grad = input_grad
+        ctx.save_for_backward(oob, *comps, *rows_idx, *rows_saved)
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        fmeta = ctx.fmeta
+        meta = fmeta.base
+        D, C = meta.input_dim, meta.level_dim
+        K = 1 << D
+        n_groups = len(fmeta.groups)
+        saved = ctx.saved_tensors
+        oob, comps = saved[0], list(saved[1 : 1 + D])
+        rows_idx = saved[1 + D : 1 + D + n_groups]
+        rows_saved = saved[1 + D + n_groups :]
+        M = comps[0].shape[0]
+        g2 = torch.where(oob[:, None], 0.0, gout.float())
+        grad_comps = [None] * D
+        grad_tables = [None] * n_groups
+        for gi, g in enumerate(fmeta.groups):
+            G = len(g)
+            gg = g2[:, g[0] * C : (g[-1] + 1) * C].reshape(M, G, 1, C)
+            w_ax, chain = _axis_weights(comps, meta, g, K)
+            if ctx.needs_input_grad[2 + D + gi]:
+                upd = (_prod(w_ax)[..., None] * gg).reshape(M, G * K * C)
+                grad_tables[gi] = launch_scatter_add_rows(rows_idx[gi], upd, fmeta.n_rows[gi])
+            if not ctx.input_grad:
+                continue
+            # d out / d comp_d = Σ_k rows · sign_d(k) · chain_d · Π_{d'≠d} w_d'
+            rg = (rows_saved[gi] * gg).sum(dim=-1)  # [M, G, K]
+            bits = torch.arange(K, device=rg.device)
+            for d in range(D):
+                sign = 2.0 * ((bits >> d) & 1).float() - 1.0  # [K]
+                cd = chain[d][..., None]  # [M, G, 1] or [G, 1]
+                others = [w_ax[e] for e in range(D) if e != d]
+                term = rg * sign * cd
+                if others:
+                    term = term * _prod(others)
+                contrib = term.sum(dim=(1, 2))
+                grad_comps[d] = contrib if grad_comps[d] is None else grad_comps[d] + contrib
+        if ctx.input_grad:
+            grad_comps = [torch.where(oob, 0.0, gc) for gc in grad_comps]
+        return (None, None, *grad_comps, *grad_tables)
 
 
 def fused_grid_encode(
     inputs: torch.Tensor | tuple,
     tables: list,
     fmeta: FusedGridMeta,
+    need_input_grad: bool = True,
 ) -> torch.Tensor:
     """Grouped multi-resolution interpolation → ``[..., L*C]`` float32.
 
     ``inputs``: ``[..., D]`` in [0, 1], or a tuple of ``D`` coordinate
     columns. ``tables[gi]``: the group's fast-view table — :func:`dense_view`
     of the canonical table for dense groups, the parameter itself for hash
-    groups.
+    groups. Differentiable in the tables and, with ``need_input_grad``, in
+    the inputs (outside [0, 1] the output and every gradient are zero).
+    ``need_input_grad=False`` skips the input gradients: the position grid's
+    samples come from stop-gradient rays.
     """
     meta = fmeta.base
-    D, C = meta.input_dim, meta.level_dim
-    K = 1 << D
+    D = meta.input_dim
     if isinstance(inputs, (tuple, list)):
         prefix = inputs[0].shape
-        comps_raw = [c.reshape(-1).float() for c in inputs]
+        comps = [c.reshape(-1).float() for c in inputs]
     else:
         prefix = inputs.shape[:-1]
         x = inputs.reshape(-1, D).float()
-        comps_raw = [x[:, d] for d in range(D)]
-    oob = torch.zeros_like(comps_raw[0], dtype=torch.bool)
-    for c in comps_raw:
-        oob = oob | (c < 0.0) | (c > 1.0)
-    comps = [c.clamp(0.0, 1.0) for c in comps_raw]
-    M = comps[0].shape[0]
-    bits = torch.arange(K, device=comps[0].device)
-
-    outs = []
-    for gi, g in enumerate(fmeta.groups):
-        G = len(g)
-        rows = tables[gi].float()[_group_rows(comps, fmeta, gi)]
-        rows = rows.reshape(M, G, K, C)
-        fr = [torch.stack(_fracs(comps, meta, lvl)[1], dim=-1) for lvl in g]
-        fr = torch.stack(fr, dim=1)  # [M, G, D]
-        w = None
-        for d in range(D):
-            fd = fr[:, :, d : d + 1]  # [M, G, 1]
-            wd = torch.where(((bits >> d) & 1) == 1, fd, 1.0 - fd)  # [M, G, K]
-            w = wd if w is None else w * wd
-        outs.append((w[..., None] * rows).sum(dim=2).reshape(M, G * C))
-    out = torch.cat(outs, dim=-1)
-    out = torch.where(oob[:, None], 0.0, out)
-    return out.reshape(*prefix, meta.num_levels * C)
+        comps = [x[:, d] for d in range(D)]
+    out = _FusedGridEncode.apply(fmeta, need_input_grad, *comps, *tables)
+    return out.reshape(*prefix, meta.num_levels * meta.level_dim)

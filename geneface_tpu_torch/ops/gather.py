@@ -1,0 +1,85 @@
+"""Row gather ``out[m] = table[idx[m]]`` — the wrapper of the CUDA kernel
+``csrc/gather_rows.cu`` (K8, the port of the Pallas probe
+``tools/bench_pallas_scatter2.py:67``, ``pallas_gather``/``gkernel``).
+
+It is the per-group row gather of the fused grid forward and the adjoint of
+the row scatter-add: an index outside ``[0, R)``, negative ones included,
+gives a zero row, as the scatter-add drops it. The output is float32 for a
+float32, bfloat16 or float16 table (the cast is fused into the copy).
+
+A CPU tensor runs :func:`gather_rows_plain`; a CUDA tensor launches the
+kernel or raises. :func:`launch_gather_rows` is not differentiable: the
+autograd pair lives in :mod:`geneface_tpu_torch.ops.scatter`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from geneface_tpu_torch.kernels import LAUNCHES
+
+__all__ = ["gather_rows_plain", "launch_gather_rows"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def gather_rows_plain(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: ``table.float()[idx]`` with out-of-range rows
+    zeroed."""
+    R = table.shape[0]
+    keep = (idx >= 0) & (idx < R)
+    out = table.float()[torch.where(keep, idx, 0).long()]
+    return torch.where(keep[:, None], out, 0.0)
+
+
+def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
+    """What the kernel takes, checked on every device, so that the CPU
+    tests refuse what the card would."""
+    if table.dtype not in _DTYPE_CODES:
+        raise TypeError(f"table must be float32/bfloat16/float16, got {table.dtype}")
+    if idx.dtype != torch.int32:
+        raise TypeError(f"idx must be int32, got {idx.dtype}")
+    if idx.ndim != 1 or table.ndim != 2:
+        raise ValueError(
+            f"expected idx [M] and table [R, W], got {tuple(idx.shape)} and "
+            f"{tuple(table.shape)}"
+        )
+    if idx.device != table.device:
+        raise ValueError(f"idx on {idx.device} but table on {table.device}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("table and idx must be contiguous")
+
+
+def launch_gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``[M, W]`` rows of ``table`` at ``idx`` (zero where out of range)."""
+    _check(table, idx)
+    if table.device.type == "cpu":
+        return gather_rows_plain(table, idx)
+    if table.device.type != "cuda":
+        raise ValueError(f"unsupported device {table.device}")
+    from geneface_tpu_torch.kernels import load_kernel
+
+    lib = load_kernel("gather_rows")
+    fn = lib.gf_gather_rows
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    R, W = table.shape
+    M = idx.shape[0]
+    out = torch.empty(M, W, dtype=torch.float32, device=table.device)
+    # 4-wide loads need whole 4-column vectors and aligned rows
+    vec = int(W % 4 == 0 and table.data_ptr() % (4 * table.element_size()) == 0)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(
+            idx.data_ptr(), table.data_ptr(), out.data_ptr(), M, W, R,
+            _DTYPE_CODES[table.dtype], vec, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"gather_rows kernel launch failed: cudaError {rc}")
+    LAUNCHES["gather_rows"] += 1
+    return out

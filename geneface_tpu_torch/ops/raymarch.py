@@ -22,6 +22,7 @@ __all__ = [
     "occupied_cell_aabb",
     "march_rays_lattice",
     "MarchResult",
+    "fma_f32",
 ]
 
 _SQRT3 = math.sqrt(3.0)
@@ -97,7 +98,7 @@ def occupied_cell_aabb(occ0: torch.Tensor, bound: float) -> torch.Tensor:
     return torch.cat([los, his])
 
 
-def _fma(a, b, c):
+def fma_f32(a, b, c):
     """``a*b + c`` with one rounding to float32, as a fused multiply-add:
     the product of two float32 values is exact in float64. The JAX
     reference's compiler fuses these multiply-adds, and a lattice point on a
@@ -141,23 +142,23 @@ def march_rays_lattice(
     o = rays_o.float()
     d = rays_d.float()
 
-    t0 = _fma(noises, dt, nears)
+    t0 = fma_f32(noises, dt, nears)
     tn, tf = near_far_from_aabb(o, d, tight, 0.0)
     # fast-forward to the tight box on the original lattice
     k0 = torch.ceil((tn - t0).clamp(min=0.0) / dt - 1e-5)
     k0 = torch.where(tn > 1e30, float(2 * H), k0)  # miss -> everything masked
-    t_start = _fma(k0, dt, t0)
+    t_start = fma_f32(k0, dt, t0)
     lo = torch.maximum(tn, nears)
     hi = torch.minimum(tf, fars)
     span_w = torch.where((tn < 1e30) & (hi > lo), hi - lo, 0.0)
     span = torch.ceil(span_w.amax() / dt).to(torch.int32) + 1
 
     ksf = torch.arange(K, dtype=torch.float32, device=dev)[None, :]
-    ts = _fma(ksf, dt, t_start[:, None])  # [N, K]
+    ts = fma_f32(ksf, dt, t_start[:, None])  # [N, K]
     in_range = ts < torch.minimum(fars, tf + dt)[:, None]
     cell = []
     for a in range(3):
-        p = _fma(ts, d[:, a : a + 1].double(), o[:, a : a + 1]).clamp(-bound, bound)
+        p = fma_f32(ts, d[:, a : a + 1].double(), o[:, a : a + 1]).clamp(-bound, bound)
         cell.append(
             (0.5 * (p / mip_bound + 1.0) * H).clamp(0.0, float(H - 1)).to(torch.int64)
         )
@@ -177,7 +178,7 @@ def march_rays_lattice(
     n = raw.sum(dim=1).clamp(max=S)
     valid = torch.arange(S, device=dev)[None, :] < n[:, None]
     ks = torch.where(valid, ks, 0)
-    ts_sel = _fma(ks, dt, t_start[:, None])
+    ts_sel = fma_f32(ks, dt, t_start[:, None])
     return MarchResult(
         ts=torch.where(valid, ts_sel, 0.0),
         dts=torch.where(valid, dt, 0.0),

@@ -1,0 +1,52 @@
+"""Training entry point of the port.
+
+    python -m geneface_tpu_torch.tasks.run --config egs/... --exp_name <dir>
+        [--hparams a=1,b=2] [--reset] [--device cpu]
+
+Mirrors ``geneface_tpu/tasks/run.py``: the config's ``task_cls`` (the JAX
+package's class path) selects the port's task through :data:`TASKS`, and the
+task trains under the :class:`~geneface_tpu_torch.training.trainer.Trainer`
+in ``checkpoints/<exp_name>``. Training runs on ``cuda`` unless ``--device
+cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+from geneface_tpu_torch.config.config import load_config
+from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+from geneface_tpu_torch.training.trainer import Trainer
+
+__all__ = ["TASKS", "resolve_task", "main"]
+
+#: ``task_cls`` of a config → the port's task class
+TASKS = {"geneface_tpu.tasks.radnerf.RADNeRFTask": RADNeRFTask}
+
+
+def resolve_task(task_cls: str):
+    try:
+        return TASKS[task_cls]
+    except KeyError:
+        raise NotImplementedError(f"task {task_cls!r} is not ported") from None
+
+
+def main(argv: list | None = None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--config", required=True)
+    ap.add_argument("--exp_name", default="")
+    ap.add_argument("--hparams", default="")
+    ap.add_argument("--reset", action="store_true", help="ignore a saved config.yaml")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    work_dir = os.path.join("checkpoints", args.exp_name) if args.exp_name else None
+    cfg = load_config(args.config, overrides=args.hparams, work_dir=work_dir,
+                      use_saved=not args.reset)
+    cfg["exp_name"] = args.exp_name
+    task = resolve_task(cfg["task_cls"])(cfg, device=args.device)
+    return Trainer(task).fit()
+
+
+if __name__ == "__main__":
+    main()

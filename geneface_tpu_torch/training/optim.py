@@ -1,0 +1,123 @@
+"""Multi-group Adam (port of ``geneface_tpu/training/optim.py``).
+
+The JAX package chains ``optax.multi_transform`` of per-group
+``scale_by_adam`` + ``scale_by_learning_rate(schedule · mult)`` behind
+optional clipping, wrapped by ``apply_if_finite`` (``guard_nan_grads``).
+Here the groups are the param groups of one ``torch.optim.Optimizer``
+(labels from the flax paths of :mod:`geneface_tpu_torch.convert`, so they
+are those of ``radnerf_label_fn``) and the step does optax's arithmetic in
+its order. The update count and the finite check stay on the device: a
+step whose gradients are not all finite leaves parameters, moments and
+count as they were, through ``torch.where``, without a host sync.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Mapping
+
+import torch
+
+from geneface_tpu_torch.convert import flax_path
+
+__all__ = ["radnerf_label_fn", "param_groups", "MultiGroupAdam", "build_optimizer"]
+
+
+def radnerf_label_fn(path: str) -> str:
+    """Group label of a '/'-joined flax parameter path."""
+    if "pos_embeddings" in path or "ambient_embeddings" in path or "torso_embeddings" in path:
+        return "grid"
+    if "cond_att_net" in path:
+        return "att"
+    return "net"
+
+
+def param_groups(model: torch.nn.Module, label_of_path: Callable[[str], str],
+                 multipliers: Mapping[str, float]) -> list:
+    """One param group per label (with its lr multiplier ``mult``), each
+    parameter labelled by its flax path ``params/...``."""
+    groups = {name: [] for name in multipliers}
+    for name, p in model.named_parameters():
+        label = label_of_path("/".join(("params",) + flax_path(name)))
+        groups[label].append(p)
+    return [
+        {"params": ps, "name": name, "mult": float(multipliers[name])}
+        for name, ps in groups.items() if ps
+    ]
+
+
+class MultiGroupAdam(torch.optim.Optimizer):
+    """Adam with a shared schedule times a per-group multiplier.
+
+    ``schedule(count)`` takes the float32 update count (0 for the first
+    update). ``clip_grad_value`` / ``clip_grad_norm`` clip the gradients
+    first (optax ``clip`` / ``clip_by_global_norm``); ``guard_nan_grads``
+    skips a step whose incoming gradients are not all finite.
+    """
+
+    def __init__(self, groups: list, schedule: Callable, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-15, clip_grad_norm: float = 0.0,
+                 clip_grad_value: float = 0.0, guard_nan_grads: bool = True):
+        super().__init__(groups, dict(mult=1.0))
+        self.schedule = schedule
+        self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+        self.clip_grad_norm = float(clip_grad_norm)
+        self.clip_grad_value = float(clip_grad_value)
+        self.guard_nan_grads = bool(guard_nan_grads)
+        dev = groups[0]["params"][0].device
+        #: updates applied so far (the optax ``count``), on the device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        #: steps skipped for non-finite gradients, on the device
+        self.skipped = torch.zeros((), dtype=torch.int32, device=dev)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("MultiGroupAdam takes no closure")
+        params = [p for g in self.param_groups for p in g["params"]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if self.clip_grad_value > 0:
+            grads = [g.clamp(-self.clip_grad_value, self.clip_grad_value) for g in grads]
+        if self.clip_grad_norm > 0:
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+            keep = norm < self.clip_grad_norm
+            grads = [torch.where(keep, g, (g / norm) * self.clip_grad_norm) for g in grads]
+        count = self.count.float()
+        count_inc = count + 1.0
+        bc1 = 1.0 - torch.pow(torch.full_like(count, self.b1), count_inc)
+        bc2 = 1.0 - torch.pow(torch.full_like(count, self.b2), count_inc)
+        lr = self.schedule(count)
+        apply = ok if self.guard_nan_grads else torch.ones_like(ok)
+        i = 0
+        for group in self.param_groups:
+            step_size = -(lr * group["mult"])
+            for p in group["params"]:
+                g = grads[i]
+                i += 1
+                st = self.state[p]
+                if not st:
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                mu = (1.0 - self.b1) * g + self.b1 * st["mu"]
+                nu = (1.0 - self.b2) * (g * g) + self.b2 * st["nu"]
+                upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+                p.copy_(torch.where(apply, p + step_size * upd, p))
+                st["mu"] = torch.where(apply, mu, st["mu"])
+                st["nu"] = torch.where(apply, nu, st["nu"])
+        self.count = torch.where(apply, self.count + 1, self.count)
+        self.skipped = torch.where(apply, self.skipped, self.skipped + 1)
+
+
+def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:
+    """The RAD-NeRF head's optimizer: net ×1, grid ×10, att ×5, eps 1e-15,
+    the config's betas, clipping and ``guard_nan_grads``."""
+    if int(cfg.get("accumulate_grad_batches", 1)) > 1:
+        raise NotImplementedError("accumulate_grad_batches > 1 is not ported")
+    groups = param_groups(model, radnerf_label_fn, {"net": 1.0, "grid": 10.0, "att": 5.0})
+    return MultiGroupAdam(
+        groups, schedule,
+        b1=cfg.get("optimizer_adam_beta1", 0.9), b2=cfg.get("optimizer_adam_beta2", 0.999),
+        eps=1e-15, clip_grad_norm=cfg.get("clip_grad_norm", 0),
+        clip_grad_value=cfg.get("clip_grad_value", 0),
+        guard_nan_grads=cfg.get("guard_nan_grads", True),
+    )

@@ -1,12 +1,21 @@
-"""Camera math on the host (numpy copies of ``geneface_tpu/utils/camera.py``):
-ngp pose conversion, 6-D pose vectors, background coordinates and full-frame
-pinhole rays."""
+"""Camera math (copies of ``geneface_tpu/utils/camera.py``): ngp pose
+conversion, 6-D pose vectors, background coordinates and pinhole rays on the
+host (numpy), and the ray / background-coordinate rebuild of a training
+batch from its pixel indices on the device (torch)."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
-__all__ = ["nerf_matrix_to_ngp", "convert_poses", "get_bg_coords", "get_rays"]
+__all__ = [
+    "nerf_matrix_to_ngp",
+    "convert_poses",
+    "get_bg_coords",
+    "get_rays",
+    "get_rays_device",
+    "bg_coords_device",
+]
 
 
 def nerf_matrix_to_ngp(pose: np.ndarray, scale: float = 4.0, offset=(0, 0, 0)) -> np.ndarray:
@@ -47,14 +56,25 @@ def get_bg_coords(H: int, W: int) -> np.ndarray:
     return np.stack([xs.reshape(-1), ys.reshape(-1)], axis=-1)[None]
 
 
-def get_rays(pose: np.ndarray, intrinsics, H: int, W: int) -> dict:
-    """Full-frame pinhole rays: ``rays_o/rays_d [H*W, 3]`` plus pixel
+def get_rays(
+    pose: np.ndarray,  # [4, 4] c2w
+    intrinsics,  # (fx, fy, cx, cy)
+    H: int,
+    W: int,
+    n_rays: int = -1,
+    rng: np.random.RandomState | None = None,
+) -> dict:
+    """Pinhole rays: the full frame (``n_rays < 0``) or ``n_rays`` uniform
+    random pixels drawn from ``rng`` (required then). Returns ``rays_o/rays_d [N, 3]``, pixel
     indices ``inds`` and pixel-centre coords ``i`` (column) / ``j`` (row).
-    The inference path renders whole frames only, so the JAX helper's
-    random/rect/patch sampling modes (training) are not copied."""
+    The JAX helper's rect and patch modes serve the lip phase, which the
+    port does not train."""
     fx, fy, cx, cy = [float(v) for v in intrinsics]
     pose = np.asarray(pose, np.float32)
-    inds = np.arange(H * W)
+    if n_rays > 0:
+        inds = rng.randint(0, H * W, min(n_rays, H * W))
+    else:
+        inds = np.arange(H * W)
     i = (inds % W).astype(np.float32) + 0.5
     j = (inds // W).astype(np.float32) + 0.5
     zs = np.ones_like(i)
@@ -65,3 +85,23 @@ def get_rays(pose: np.ndarray, intrinsics, H: int, W: int) -> dict:
     rays_d = dirs @ pose[:3, :3].T
     rays_o = np.broadcast_to(pose[:3, 3], rays_d.shape).copy()
     return {"rays_o": rays_o, "rays_d": rays_d, "inds": inds, "i": i, "j": j}
+
+
+def get_rays_device(pose: torch.Tensor, intrinsics, inds: torch.Tensor, H: int, W: int):
+    """:func:`get_rays` on the device for pixel indices ``inds [N]`` → (rays_o
+    [N, 3], rays_d [N, 3], i [N], j [N])."""
+    fx, fy, cx, cy = [float(v) for v in intrinsics]
+    i = (inds % W).float() + 0.5
+    j = torch.div(inds, W, rounding_mode="floor").float() + 0.5
+    dirs = torch.stack([(i - cx) / fx, (j - cy) / fy, torch.ones_like(i)], dim=-1)
+    dirs = dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)
+    rays_d = dirs @ pose[:3, :3].T
+    rays_o = pose[:3, 3].expand_as(rays_d)
+    return rays_o, rays_d, i, j
+
+
+def bg_coords_device(inds: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Background coords in [-1, 1] of pixel indices (x varies over rows)."""
+    xs = torch.div(inds, W, rounding_mode="floor").float() / (H - 1) * 2 - 1
+    ys = (inds % W).float() / (W - 1) * 2 - 1
+    return torch.stack([xs, ys], dim=-1)

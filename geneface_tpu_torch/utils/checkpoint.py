@@ -21,7 +21,13 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["save_checkpoint", "load_checkpoint", "get_last_checkpoint"]
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "get_all_checkpoints",
+    "get_last_checkpoint",
+    "save_step_checkpoint",
+]
 
 _STEP_RE = re.compile(r"model_ckpt_steps_(\d+)\.ckpt$")
 
@@ -83,11 +89,28 @@ def load_checkpoint(path: str) -> dict:
         return _CheckpointUnpickler(f).load()
 
 
-def get_last_checkpoint(work_dir: str) -> str | None:
-    """Newest ``model_ckpt_steps_<step>.ckpt`` under ``work_dir``."""
+def get_all_checkpoints(work_dir: str) -> list:
+    """``(step, path)`` of every ``model_ckpt_steps_<step>.ckpt`` under
+    ``work_dir``, by step."""
     found = []
     for p in glob.glob(os.path.join(work_dir, "model_ckpt_steps_*.ckpt")):
         m = _STEP_RE.search(p)
         if m:
             found.append((int(m.group(1)), p))
-    return max(found)[1] if found else None
+    return sorted(found)
+
+
+def get_last_checkpoint(work_dir: str) -> str | None:
+    """Newest ``model_ckpt_steps_<step>.ckpt`` under ``work_dir``."""
+    found = get_all_checkpoints(work_dir)
+    return found[-1][1] if found else None
+
+
+def save_step_checkpoint(work_dir: str, step: int, payload: dict, num_keep: int = 1) -> str:
+    """Write ``model_ckpt_steps_<step>.ckpt`` and keep the newest
+    ``num_keep`` step checkpoints (the JAX ``CheckpointManager`` rotation)."""
+    path = os.path.join(work_dir, f"model_ckpt_steps_{step}.ckpt")
+    save_checkpoint(path, payload)
+    for _, old in get_all_checkpoints(work_dir)[: -max(1, int(num_keep))]:
+        os.remove(old)
+    return path

@@ -1,5 +1,6 @@
 """Card-only checks of the port: each CUDA kernel against its plain PyTorch
-version, and a frame rendered on the card against the CPU plain path.
+version, the autograd pair and the grid backward on the card against the
+CPU, and a frame rendered on the card against the CPU plain path.
 
 Imports no JAX, so it runs on a GPU host that has only PyTorch:
 
@@ -7,7 +8,11 @@ Imports no JAX, so it runs on a GPU host that has only PyTorch:
 
 Every test skips when CUDA is absent. Tolerances: float32 atomic sums in
 another order — rtol 1e-5, atol 1e-4 (random updates) / exact for unique
-rows; a float32 frame on the card vs the CPU — 1e-5 absolute per pixel.
+rows; a row gather is a copy — exact; the grid forward (corner sums in
+another order) rtol 1e-6, atol 1e-7; the grid backward's table gradients
+(atomic order) rtol 1e-5, atol 1e-6·max, its input gradients rtol 1e-4,
+atol 1e-6·max; a float32 frame on the card vs the CPU — 1e-5 absolute per
+pixel.
 """
 
 import os
@@ -17,8 +22,12 @@ import numpy as np
 import pytest
 import torch
 
+from geneface_tpu_torch.ops import dense_view, fused_grid_encode, make_fused_grid_meta, make_grid_meta
 from geneface_tpu_torch.ops.scatter import (
     LAUNCHES,
+    gather_rows,
+    gather_rows_plain,
+    launch_gather_rows,
     scatter_add_rows,
     scatter_add_rows_plain,
 )
@@ -70,6 +79,88 @@ def test_scatter_kernel_rejects_mixed_devices(card):
         scatter_add_rows(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 6, device=card), 3)
 
 
+@pytest.mark.parametrize(
+    "M,R,W,dtype",
+    [
+        (524288, 5832, 32, torch.float32),  # the training step's shapes
+        (524288, 4096, 224, torch.float32),
+        (131072, 5466, 112, torch.bfloat16),
+        (70000, 324, 16, torch.float16),
+        (1000, 50, 6, torch.float32),  # W % 4 != 0: the scalar path
+        (0, 10, 8, torch.float32),  # no indices
+    ],
+)
+def test_gather_kernel_matches_plain(card, M, R, W, dtype):
+    rng = np.random.RandomState(M + W)
+    idx = torch.from_numpy(rng.randint(-3, R + 3, M).astype(np.int32)).to(card)
+    table = torch.from_numpy(rng.randn(R, W).astype(np.float32)).to(dtype).to(card)
+    before = LAUNCHES["gather_rows"]
+    got = launch_gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gather_rows"] == before + 1
+    assert got.dtype == torch.float32 and got.shape == (M, W)
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+def test_gather_kernel_unaligned_table_takes_scalar_path(card):
+    base = torch.randn(1000 * 8 + 1, device=card)
+    table = base[1:].view(1000, 8)  # contiguous, 4 bytes past an aligned row
+    idx = torch.randint(0, 1000, (5000,), dtype=torch.int32, device=card)
+    assert torch.equal(launch_gather_rows(table, idx), gather_rows_plain(table, idx))
+
+
+def test_autograd_pair_on_card_matches_cpu(card):
+    rng = np.random.RandomState(0)
+    R, M, W = 300, 20000, 12
+    rows = torch.from_numpy(rng.randint(-2, R + 2, M).astype(np.int32))
+    upd = torch.from_numpy(rng.randn(M, W).astype(np.float32))
+    g = torch.from_numpy(rng.randn(R, W).astype(np.float32))
+    grads = {}
+    for dev in ("cpu", card):
+        u = upd.clone().to(dev).requires_grad_(True)
+        t = g.clone().to(dev).requires_grad_(True)
+        before = dict(LAUNCHES)
+        scatter_add_rows(rows.to(dev), u, R).backward(g.to(dev))
+        gather_rows(t, rows.to(dev)).backward(upd.to(dev))
+        torch.cuda.synchronize()
+        if dev != "cpu":
+            # each forward and each backward launched its kernel once
+            assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 2
+            assert LAUNCHES["gather_rows"] == before["gather_rows"] + 2
+        grads[str(dev)] = (u.grad.cpu(), t.grad.cpu())
+    assert torch.equal(grads["cuda"][0], grads["cpu"][0])
+    torch.testing.assert_close(grads["cuda"][1], grads["cpu"][1], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("D,need_input_grad", [(3, False), (2, True)])
+def test_grid_backward_on_card_matches_cpu(card, D, need_input_grad):
+    meta = make_grid_meta(input_dim=D, num_levels=8, level_dim=4, log2_hashmap_size=14,
+                          desired_resolution=2048, gridtype="tiled")
+    fmeta = make_fused_grid_meta(meta)
+    gen = torch.Generator().manual_seed(D)
+    x = torch.rand(200000, D, generator=gen)
+    params = [torch.rand(*((fmeta.dense_sides[gi] ** D, 4) if fmeta.modes[gi] == "dense"
+                           else (fmeta.n_rows[gi], fmeta.group_width(gi))), generator=gen)
+              for gi in range(len(fmeta.groups))]
+    gout = torch.randn(200000, 32, generator=gen)
+    res = {}
+    for dev in ("cpu", card):
+        xs = x.clone().to(dev).requires_grad_(need_input_grad)
+        ps = [p.clone().to(dev).requires_grad_(True) for p in params]
+        tables = [dense_view(p, fmeta, gi) if fmeta.modes[gi] == "dense" else p
+                  for gi, p in enumerate(ps)]
+        out = fused_grid_encode(xs, tables, fmeta, need_input_grad=need_input_grad)
+        out.backward(gout.to(dev))
+        res[str(dev)] = (out.detach().cpu(), [p.grad.cpu() for p in ps],
+                         xs.grad.cpu() if need_input_grad else None)
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-6, atol=1e-7)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    if need_input_grad:
+        b = res["cpu"][2]
+        torch.testing.assert_close(res["cuda"][2], b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
 def test_frame_on_card_matches_cpu(card, tmp_path):
     import chip_smoke
     from geneface_tpu_torch.inference import RADNeRFInfer
@@ -80,10 +171,11 @@ def test_frame_on_card_matches_cpu(card, tmp_path):
     cpu.prepare()
     gpu.prepare()
     assert gpu.ray_capacity == cpu.ray_capacity is not None
-    before = LAUNCHES["scatter_add_rows"]
+    before = dict(LAUNCHES)
     got = gpu.render_frame(1)
     torch.cuda.synchronize()
-    assert LAUNCHES["scatter_add_rows"] == before + 2
+    assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 2
+    assert LAUNCHES["gather_rows"] == before["gather_rows"] + 4
     want = cpu.render_frame(1)
     assert torch.equal(got["n_samples"].cpu(), want["n_samples"])
     torch.testing.assert_close(got["rgb_map"].cpu(), want["rgb_map"], rtol=0, atol=1e-5)
