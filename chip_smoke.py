@@ -19,14 +19,21 @@ together), sets the launch counts to 0 before each path and checks after it
 that the path launched each kernel at every call site, then holds every
 kernel against its plain PyTorch version on the arguments captured at each
 call site of a real frame, step and sweep, and times kernel, plain version
-and library call there.
+and library call there. At a scatter-add site every kernel variant that
+takes the site's shape is held to the plain version and timed in turns; the
+run fails if the wrapper's own choice is slower than another variant by
+more than 10% and 2 µs.
 
-Prints, before the last line: the card's name and power limit, ms/frame,
+Prints, before the last line: the card's name and power limit, each
+kernel's registers, spills and static shared memory (ptxas), ms/frame,
 ms/step, the sweep's ms, rays/s, the capacities, the device time by stage
 and the idle share of a frame and of a step (``torch.profiler``; the tables
-go to ``smoke_out/``), the losses, and one ``{"kernels": [...]}`` JSON line.
+go to ``smoke_out/``), the losses, one line per kernel call site (the
+variant chosen and every variant's time, the bound, the plain version and
+the library call), and one ``{"kernels": [...]}`` JSON line.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
-the profiler; ``ms_events`` adds the host's launch gaps.
+the profiler, ``library_ms`` and each variant's the median of three windows;
+``ms_events`` adds the host's launch gaps.
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a card it exits 1 and prints no result.
 """
@@ -227,32 +234,44 @@ def capture_calls(run) -> list:
     return calls
 
 
+def median_ms(fn, windows: int = 3) -> float:
+    """Median of ``windows`` :func:`device_ms` windows of ``fn``."""
+    return sorted(device_ms(fn) for _ in range(windows))[windows // 2]
+
+
 def measure_scatter(rows, updates, n_rows, exact: bool) -> dict:
-    """K1 vs its plain version vs ``index_add_`` on one captured call."""
+    """K1 on one captured call: every variant that takes the shape held
+    against the plain version, then timed in turns (three rounds over the
+    variants and ``index_add_``, the median of each)."""
     import torch
 
     from geneface_tpu_torch.ops import scatter as sc
 
-    got = sc.launch_scatter_add_rows(rows, updates, n_rows)
-    ref = sc.scatter_add_rows_plain(rows, updates, n_rows)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max()) if got.numel() else 0.0
-    kept = (rows >= 0) & (rows < n_rows)
-    if exact:
-        if err != 0.0:
-            raise AssertionError(f"scatter with unique rows not exact: {err}")
-    else:
-        # float32 sums of the same terms in two atomic orders: each sum of n
-        # terms is held to the first-order bound of both orders' rounding,
-        # 2·n·2^-24 times the sum of its terms' magnitudes (the grid
-        # backward sums up to ~2,000 cancelling terms per row)
-        n = torch.bincount(rows[kept].long(), minlength=n_rows).float()[:, None]
-        mag = sc.scatter_add_rows_plain(rows, updates.abs(), n_rows)
-        bad = int(((got - ref).abs() > 2.0 * n * 2.0**-24 * mag).sum())
-        if bad:
-            raise AssertionError(f"scatter: {bad} sums beyond the float32 rounding bound")
-    n_kept = int(kept.sum())
     M, W = updates.shape
+    shape = (M, W, int(n_rows), updates.element_size(), updates.data_ptr() % 16 == 0)
+    chosen = sc.pick_scatter_variant(*shape)
+    accepted = [v for v in sc.VARIANTS if sc.scatter_variant_accepts(v, *shape)]
+    if chosen not in accepted:
+        raise AssertionError(f"the dispatcher chose {chosen}, which does not take {shape}")
+    ref = sc.scatter_add_rows_plain(rows, updates, n_rows)
+    kept = (rows >= 0) & (rows < n_rows)
+    # float32 sums of the same terms in two orders: each sum of n terms is
+    # held to the first-order bound of both orders' rounding, 2·n·2^-24
+    # times the sum of its terms' magnitudes (the grid backward sums up to
+    # ~2,000 cancelling terms per row)
+    n = torch.bincount(rows[kept].long(), minlength=n_rows).float()[:, None]
+    bound = 2.0 * n * 2.0**-24 * sc.scatter_add_rows_plain(rows, updates.abs(), n_rows)
+    errs = {}
+    for v in accepted:
+        got = sc.launch_scatter_add_rows(rows, updates, n_rows, variant=v)
+        torch.cuda.synchronize()
+        errs[v] = float((got - ref).abs().max()) if got.numel() else 0.0
+        if exact and errs[v] != 0.0:
+            raise AssertionError(f"scatter ({v}) with unique rows not exact: {errs[v]}")
+        bad = int(((got - ref).abs() > bound).sum())
+        if bad:
+            raise AssertionError(f"scatter ({v}): {bad} sums beyond the float32 rounding bound")
+    n_kept = int(kept.sum())
     # the library yardstick: one index_add_ on in-range rows (redirected to
     # a spill row outside the timed call)
     safe = torch.where(kept, rows, n_rows).long()
@@ -261,18 +280,39 @@ def measure_scatter(rows, updates, n_rows, exact: bool) -> dict:
     def library():
         return torch.zeros(n_rows + 1, W, device=updates.device).index_add_(0, safe, upd32)
 
+    def kernel(v=None):
+        return lambda: sc.launch_scatter_add_rows(rows, updates, n_rows, variant=v)
+
+    rounds = {v: [] for v in accepted + ["library"]}
+    for _ in range(3):
+        for v in accepted:
+            rounds[v].append(device_ms(kernel(v)))
+        rounds["library"].append(device_ms(library))
+    times = {v: sorted(t)[1] for v, t in rounds.items()}
     n_bytes = M * 4 + n_kept * W * updates.element_size() + n_rows * W * 4
     n_ops = n_kept * W
     return {
         "M": M, "W": W, "n_rows": int(n_rows), "kept_rows": n_kept,
-        "max_abs_err": err,
-        "ms": device_ms(lambda: sc.launch_scatter_add_rows(rows, updates, n_rows)),
+        "variant": chosen, "max_abs_err": errs[chosen], "ms": times[chosen],
+        "variants": {v: times[v] for v in accepted},
+        "variants_max_abs_err": errs,
         "plain_ms": device_ms(lambda: sc.scatter_add_rows_plain(rows, updates, n_rows)),
-        "library_ms": device_ms(library),
-        "ms_events": events_ms(lambda: sc.launch_scatter_add_rows(rows, updates, n_rows)),
+        "library_ms": times["library"],
+        "ms_events": events_ms(kernel()),
         "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
         "ops_ms": n_ops / PEAK_F32_OPS_S * 1e3,
     }
+
+
+def misdispatched(site: dict) -> str | None:
+    """A message if another variant that takes the site's shape beat the
+    dispatcher's choice by more than 10% and 2 µs."""
+    best = min(site["variants"], key=site["variants"].get)
+    ms, best_ms = site["ms"], site["variants"][best]
+    if ms > 1.1 * best_ms and ms - best_ms > 0.002:
+        return (f"{site['site']}: pick_scatter_variant chose {site['variant']} "
+                f"({ms:.4f} ms) but {best} takes {best_ms:.4f} ms")
+    return None
 
 
 def measure_gather(table, idx) -> dict:
@@ -302,9 +342,11 @@ def measure_gather(table, idx) -> dict:
     n_bytes = M * 4 + R * W * table.element_size() + M * W * 4
     return {
         "M": M, "W": W, "n_rows": R, "kept_rows": int(keep.sum()), "max_abs_err": err,
+        "columns_per_thread": ga.pick_gather_path(
+            W, table.element_size(), table.data_ptr(), got.data_ptr()),
         "ms": device_ms(lambda: ga.launch_gather_rows(table, idx)),
         "plain_ms": device_ms(lambda: ga.gather_rows_plain(table, idx)),
-        "library_ms": device_ms(library),
+        "library_ms": median_ms(library),
         "ms_events": events_ms(lambda: ga.launch_gather_rows(table, idx)),
         "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
         "ops_ms": 0.0,
@@ -358,10 +400,48 @@ def measure_sites(sites: dict, per_call: dict) -> list:
             m = measure_scatter(*args, exact=exact)
         m.update(site=site, kernel=kernel, launches_per_call=per_call.get(site, 1))
         out.append(m)
+        bound = max(m["bytes_ms"], m["ops_ms"])
+        how = (f"variant {m['variant']}, all " + json.dumps(
+            {v: round(t, 4) for v, t in m["variants"].items()})
+            if kernel == "scatter_add_rows" else f"{m['columns_per_thread']} columns per thread")
+        print(f"site {site} [{m['M']}, {m['W']}] x [{m['n_rows']}, {m['W']}]: {kernel} "
+              f"{m['ms']:.4f} ms ({how}); bound {bound:.4f}, plain {m['plain_ms']:.4f}, "
+              f"library {m['library_ms']:.4f}")
+    wrong = [w for w in (misdispatched(m) for m in out if "variants" in m) if w]
+    if wrong:
+        raise AssertionError("the dispatcher's table is wrong: " + "; ".join(wrong))
     return out
 
 
-def kernel_entry(name: str, sites: list, launches: dict) -> dict:
+def ptxas_summary(build_log: str) -> dict:
+    """``{kernel: {"registers", "spill_bytes", "static_smem_bytes"}}``, the
+    most over a kernel's instantiations, from nvcc's ``-Xptxas -v`` output."""
+    import re
+
+    out, name = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            # the mangled name holds each identifier behind its length; the
+            # last such match is the kernel (a hash before it may match too)
+            found = re.finditer(r"(?=(\d{1,2})([a-z][a-z0-9_]*?_kernel))", line)
+            name = [m.group(2) for m in found if int(m.group(1)) == len(m.group(2))][-1]
+            out.setdefault(name, {"registers": 0, "spill_bytes": 0, "static_smem_bytes": 0})
+            continue
+        if name is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        used = re.search(r"Used (\d+) registers", line)
+        smem = re.search(r"(\d+) bytes smem", line)
+        k = out[name]
+        if spill:
+            k["spill_bytes"] = max(k["spill_bytes"], int(spill.group(1)) + int(spill.group(2)))
+        if used:
+            k["registers"] = max(k["registers"], int(used.group(1)))
+            k["static_smem_bytes"] = max(k["static_smem_bytes"], int(smem.group(1)) if smem else 0)
+    return out
+
+
+def kernel_entry(name: str, sites: list, launches: dict, ptxas: dict) -> dict:
     """One kernel's line of the ``kernels`` JSON: its times summed over one
     call at every site, launches of the counted serve and train runs."""
     mine = [s for s in sites if s["kernel"] == name]
@@ -386,6 +466,8 @@ def kernel_entry(name: str, sites: list, launches: dict) -> dict:
         "ms_events": sum(s["ms_events"] for s in mine),
         "bytes_ms": bytes_ms,
         "sum_of": "one call at each site below",
+        "ptxas": {k: v for k, v in ptxas.items()
+                  if k.startswith("gather") == (name == "gather_rows")},
         "sites": mine,
     }
 
@@ -723,6 +805,10 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke_build.log"), "w") as f:
         f.write(build_log)
+    ptxas = ptxas_summary(build_log)
+    for name, use in sorted(ptxas.items()):
+        print(f"ptxas: {name} {use['registers']} registers, {use['spill_bytes']} bytes "
+              f"spilled, {use['static_smem_bytes']} bytes static shared memory")
 
     root = os.path.join(REPO, ".smoke_work")
     shutil.rmtree(root, ignore_errors=True)
@@ -738,8 +824,8 @@ def main() -> int:
         print(f"phases: serve {t2 - t1:.1f} s, train {t3 - t2:.1f} s, "
               f"kernel sites {time.time() - t3:.1f} s")
         launches = {"serve": serve_launches, "train": train_launches}
-        kernels_line = {"kernels": [kernel_entry("scatter_add_rows", sites, launches),
-                                    kernel_entry("gather_rows", sites, launches)]}
+        kernels_line = {"kernels": [kernel_entry("scatter_add_rows", sites, launches, ptxas),
+                                    kernel_entry("gather_rows", sites, launches, ptxas)]}
         record = {"gpu": smi, "serve": serve, "train": train, **kernels_line}
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

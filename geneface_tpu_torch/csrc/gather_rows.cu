@@ -18,9 +18,11 @@
 // per vector from L1, the table row is read as one 16-byte (float32) or
 // 8-byte (bfloat16/float16, widened in registers) load, and neighbouring
 // threads store neighbouring 16-byte vectors of the same output row
-// (coalesced stores). Rows whose width is not a multiple of 4, or pointers
-// that are not aligned for the vector loads, take the scalar path (one
-// element per thread). No shared memory.
+// (coalesced stores). Rows whose width is a multiple of 2 but not of 4 (the
+// composite's 6 columns) move the same way as 2-column vectors: 8-byte
+// loads and stores (4-byte loads from a 16-bit table). Rows of odd width, or
+// pointers that are not aligned for the vector loads, take the scalar path
+// (one element per thread). No shared memory.
 //
 // Plain C interface for ctypes: returns cudaGetLastError() after the launch.
 
@@ -52,6 +54,19 @@ __device__ __forceinline__ float4 load4(const __half* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
+// two consecutive table values starting at p (aligned), widened to float32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+}
+__device__ __forceinline__ float2 load2(const __half* p) {
+  const unsigned raw = __ldg(reinterpret_cast<const unsigned*>(p));
+  return __half22float2(*reinterpret_cast<const __half2*>(&raw));
+}
+
 template <typename T>
 __global__ void gather_rows_vec4_kernel(const int32_t* __restrict__ idx,
                                         const T* __restrict__ table,
@@ -68,6 +83,25 @@ __global__ void gather_rows_vec4_kernel(const int32_t* __restrict__ idx,
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (r >= 0 && r < R) v = load4(table + (int64_t)r * W + c);
     *reinterpret_cast<float4*>(out + m * W + c) = v;
+  }
+}
+
+template <typename T>
+__global__ void gather_rows_vec2_kernel(const int32_t* __restrict__ idx,
+                                        const T* __restrict__ table,
+                                        float* __restrict__ out, int64_t M,
+                                        int64_t W, int64_t R) {
+  const int64_t nvec = W >> 1;
+  const int64_t total = M * nvec;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += stride) {
+    const int64_t m = e / nvec;
+    const int64_t c = (e - m * nvec) << 1;
+    const int32_t r = __ldg(idx + m);
+    float2 v = make_float2(0.f, 0.f);
+    if (r >= 0 && r < R) v = load2(table + (int64_t)r * W + c);
+    *reinterpret_cast<float2*>(out + m * W + c) = v;
   }
 }
 
@@ -91,7 +125,7 @@ template <typename T>
 void launch(const void* idx, const void* table, void* out, int64_t M,
             int64_t W, int64_t R, int vec, cudaStream_t stream) {
   const int threads = 256;
-  const int64_t total = vec ? M * (W >> 2) : M * W;
+  const int64_t total = M * (W / vec);
   int64_t blocks = (total + threads - 1) / threads;
   // enough blocks to fill 132 SMs many times over; the loop covers the rest
   const int64_t max_blocks = 132 * 64;
@@ -99,8 +133,10 @@ void launch(const void* idx, const void* table, void* out, int64_t M,
   const int32_t* i = static_cast<const int32_t*>(idx);
   const T* t = static_cast<const T*>(table);
   float* o = static_cast<float*>(out);
-  if (vec) {
+  if (vec == 4) {
     gather_rows_vec4_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(i, t, o, M, W, R);
+  } else if (vec == 2) {
+    gather_rows_vec2_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(i, t, o, M, W, R);
   } else {
     gather_rows_scalar_kernel<T><<<(unsigned)blocks, threads, 0, stream>>>(i, t, o, M, W, R);
   }
@@ -108,13 +144,14 @@ void launch(const void* idx, const void* table, void* out, int64_t M,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = float16. vec = 1 takes the 4-wide
-// path: the caller guarantees W % 4 == 0 and 16-byte (float32) / 8-byte
-// (16-bit) aligned table and output pointers.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. vec = 4 or 2 takes the
+// 4- or 2-wide path: the caller guarantees W % vec == 0 and table and output
+// pointers aligned to vec values of their types; vec = 1 is the scalar path.
 extern "C" int gf_gather_rows(const void* idx, const void* table, void* out,
                               int64_t M, int64_t W, int64_t R, int dtype,
                               int vec, void* stream) {
   if (M <= 0 || W <= 0) return (int)cudaSuccess;
+  if ((vec != 4 && vec != 2 && vec != 1) || W % vec != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: launch<float>(idx, table, out, M, W, R, vec, s); break;

@@ -20,7 +20,7 @@ import torch
 
 from geneface_tpu_torch.kernels import LAUNCHES
 
-__all__ = ["gather_rows_plain", "launch_gather_rows"]
+__all__ = ["gather_rows_plain", "launch_gather_rows", "pick_gather_path"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -52,6 +52,16 @@ def _check(table: torch.Tensor, idx: torch.Tensor) -> None:
         raise ValueError("table and idx must be contiguous")
 
 
+def pick_gather_path(W: int, itemsize: int, table_ptr: int, out_ptr: int) -> int:
+    """Columns per thread of the kernel's path: 4 or 2 where ``W`` is a whole
+    number of such vectors and the table (``itemsize`` bytes per value) and
+    the float32 output are aligned to them, else 1 (the scalar path)."""
+    for vec in (4, 2):
+        if W % vec == 0 and table_ptr % (vec * itemsize) == 0 and out_ptr % (vec * 4) == 0:
+            return vec
+    return 1
+
+
 def launch_gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``[M, W]`` rows of ``table`` at ``idx`` (zero where out of range)."""
     _check(table, idx)
@@ -71,8 +81,7 @@ def launch_gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     R, W = table.shape
     M = idx.shape[0]
     out = torch.empty(M, W, dtype=torch.float32, device=table.device)
-    # 4-wide loads need whole 4-column vectors and aligned rows
-    vec = int(W % 4 == 0 and table.data_ptr() % (4 * table.element_size()) == 0)
+    vec = pick_gather_path(W, table.element_size(), table.data_ptr(), out.data_ptr())
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(

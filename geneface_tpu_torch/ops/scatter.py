@@ -16,6 +16,13 @@ The two differentiable wrappers are each other's adjoint:
 backward K1 into ``[R, W]``). A CPU tensor runs the plain versions; a CUDA
 tensor launches the kernels or raises. ``LAUNCHES`` counts kernel launches
 only.
+
+K1 has five kernel variants (``VARIANTS``; the source's header says what
+bounds each). :func:`pick_scatter_variant` chooses one from the call's
+shape and alignment alone; every variant is right for every input it
+accepts, so the choice moves time, never the result beyond the order of
+float32 sums. ``launch_scatter_add_rows(..., variant="runs")`` forces one,
+for measurements and card tests; nothing on the model's path passes it.
 """
 
 from __future__ import annotations
@@ -31,6 +38,11 @@ __all__ = [
     "scatter_add_rows",
     "scatter_add_rows_plain",
     "launch_scatter_add_rows",
+    "pick_scatter_variant",
+    "scatter_variant_accepts",
+    "smem_plan",
+    "VARIANTS",
+    "SMEM_LIMIT",
     "gather_rows",
     "gather_rows_plain",
     "launch_gather_rows",
@@ -38,6 +50,26 @@ __all__ = [
 ]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+#: the kernel variants of ``csrc/scatter_add_rows.cu``
+VARIANTS = ("atomic", "smem", "runs", "vec", "sorted")
+#: the most dynamic shared memory a block can use on Hopper, in bytes
+SMEM_LIMIT = 232448
+#: threads of a block of the ``smem`` variant (``kSmemThreads`` in the source)
+SMEM_THREADS = 1024
+#: ``smem`` is chosen from this many updates per table row on
+SMEM_MIN_UPDATES_PER_ROW = 128
+#: ``sorted`` is chosen for rows wider than this: a warp then holds one
+#: update or less, so ``vec`` finds no neighbouring rows to merge
+SORTED_MIN_WIDTH = 33
+#: ``sorted`` is chosen from this many bytes of updates on: its sort costs
+#: ~25 µs on an H100 whatever the width, its sums then run near the bytes
+#: bound, where ``vec`` takes about twice the bound
+SORTED_MIN_UPDATE_BYTES = 1 << 26
+#: threads of a block of the ``sorted`` variant's counting kernels
+SORT_THREADS = 1024
+#: row widths the ``runs`` variant is compiled for
+RUNS_WIDTHS = (2, 6)
 
 
 def scatter_add_rows_plain(
@@ -69,14 +101,114 @@ def _check(rows: torch.Tensor, updates: torch.Tensor, n_rows: int) -> None:
         raise ValueError(f"n_rows must be >= 0, got {n_rows}")
 
 
+def scatter_variant_accepts(
+    variant: str, M: int, W: int, n_rows: int, itemsize: int, aligned: bool
+) -> bool:
+    """Whether ``variant`` takes ``[M, W]`` updates of ``itemsize`` bytes per
+    value into ``[n_rows, W]``; ``aligned`` says that the updates start on a
+    16-byte boundary (the vector loads)."""
+    if variant == "atomic":
+        return True
+    if variant == "smem":
+        # scalar loads where the vectors do not fit, so any alignment; one
+        # thread of a block per column
+        return 0 < n_rows * W * 4 <= SMEM_LIMIT and W <= SMEM_THREADS
+    if variant == "runs":
+        return aligned and W in RUNS_WIDTHS
+    if variant == "vec":
+        return aligned and W > 0 and W % 2 == 0
+    if variant == "sorted":
+        # one int per table row in a block's shared memory
+        return aligned and W > 0 and W % 2 == 0 and M < 2**31 and 0 < n_rows * 4 <= SMEM_LIMIT
+    raise ValueError(f"unknown scatter variant {variant!r}; one of {VARIANTS}")
+
+
+def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bool) -> str:
+    """The variant of ``csrc/scatter_add_rows.cu`` for a call's shape.
+
+    - odd ``W``, unaligned updates or nothing to add: ``atomic``, which
+      takes anything;
+    - a table that fits a block's shared memory and gets at least
+      ``SMEM_MIN_UPDATES_PER_ROW`` updates per row: ``smem`` (each of the
+      ~132 blocks flushes the whole table once, so it pays only where the
+      updates far outnumber ``blocks * n_rows``);
+    - narrow rows (``W`` 2 or 6): ``runs``, which merges equal neighbouring
+      rows in the warp and costs nothing where there are none;
+    - rows of at least ``SORTED_MIN_WIDTH`` columns with at least
+      ``SORTED_MIN_UPDATE_BYTES`` of updates and a table of at most 58,112
+      rows: ``sorted``;
+    - any other even ``W``: ``vec`` (16-byte vector atomics where
+      ``W % 4 == 0``, 8-byte ones else), which merges equal neighbouring
+      rows in registers.
+    """
+    if not aligned or W % 2 or M == 0 or W == 0 or n_rows == 0:
+        return "atomic"
+    if M >= SMEM_MIN_UPDATES_PER_ROW * n_rows and scatter_variant_accepts(
+            "smem", M, W, n_rows, itemsize, aligned):
+        return "smem"
+    if W in RUNS_WIDTHS:
+        return "runs"
+    if (W >= SORTED_MIN_WIDTH and M * W * itemsize >= SORTED_MIN_UPDATE_BYTES
+            and scatter_variant_accepts("sorted", M, W, n_rows, itemsize, aligned)):
+        return "sorted"
+    return "vec"
+
+
+def smem_plan(M: int, W: int, n_rows: int, vec_width: int, sm_count: int) -> tuple:
+    """``(blocks, copies, copy_stride)`` of the ``smem`` variant: a
+    persistent grid of at most one block per SM; as many accumulator copies
+    (a power of two, at most 8) as the shared memory holds, each starting
+    one bank after the last (``copy_stride % 32 == 1``), or one unpadded
+    copy."""
+    elems = n_rows * W
+    stride = elems + (1 - elems) % 32
+    copies = 8
+    while copies > 1 and copies * stride * 4 > SMEM_LIMIT:
+        copies //= 2
+    if copies == 1:
+        stride = elems
+    pairs = M * (W // vec_width)  # one thread takes a few (update, vector) pairs
+    blocks = max(1, min(sm_count, -(-pairs // (4 * SMEM_THREADS))))
+    return blocks, copies, stride
+
+
+def _bind(lib, name: str, n_extra_ints: int, scratch: bool = False):
+    """``lib.<name>`` with the argument types of (rows, updates, out,
+    [scratch,] M, W, n_rows, dtype, n_extra_ints ints, stream)."""
+    fn = getattr(lib, name)
+    fn.argtypes = (
+        [ctypes.c_void_p] * (4 if scratch else 3) + [ctypes.c_int64] * 3
+        + [ctypes.c_int] * (1 + n_extra_ints) + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def launch_scatter_add_rows(
     rows: torch.Tensor,  # [M] int32 destination row per update (OOB dropped)
     updates: torch.Tensor,  # [M, W] float32 / bfloat16 / float16
     n_rows: int,
+    variant: str | None = None,
 ) -> torch.Tensor:
     """``[n_rows, W]`` float32 row sums of ``updates`` grouped by ``rows``
-    (not differentiable: see :func:`scatter_add_rows`)."""
+    (not differentiable: see :func:`scatter_add_rows`).
+
+    On the card the kernel variant is :func:`pick_scatter_variant`'s choice
+    for the shape; ``variant`` forces one (for measurements and tests; a
+    variant that does not take the shape raises ``ValueError``). One call
+    counts as one launch whatever the variant."""
     _check(rows, updates, n_rows)
+    M, W = updates.shape
+    n_rows = int(n_rows)
+    itemsize = updates.element_size()
+    aligned = updates.data_ptr() % 16 == 0
+    if variant is None:
+        variant = pick_scatter_variant(M, W, n_rows, itemsize, aligned)
+    elif not scatter_variant_accepts(variant, M, W, n_rows, itemsize, aligned):
+        raise ValueError(
+            f"scatter variant {variant!r} does not take updates [{M}, {W}] "
+            f"({'aligned' if aligned else 'unaligned'}) into [{n_rows}, {W}]"
+        )
     if updates.device.type == "cpu":
         return scatter_add_rows_plain(rows, updates, n_rows)
     if updates.device.type != "cuda":
@@ -84,22 +216,48 @@ def launch_scatter_add_rows(
     from geneface_tpu_torch.kernels import load_kernel
 
     lib = load_kernel("scatter_add_rows")
-    fn = lib.gf_scatter_add_rows
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    M, W = updates.shape
-    out = torch.zeros(int(n_rows), W, dtype=torch.float32, device=updates.device)
-    with torch.cuda.device(updates.device):
+    dev = updates.device
+    head = (rows.data_ptr(), updates.data_ptr())
+    tail = (M, W, n_rows, _DTYPE_CODES[updates.dtype])
+    vec_width = 4 if W % 4 == 0 else 2  # columns per vector load and atomic
+    with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(
-            rows.data_ptr(), updates.data_ptr(), out.data_ptr(), M, W,
-            int(n_rows), _DTYPE_CODES[updates.dtype], stream,
-        )
+        if variant == "smem" and M > 0 and W > 0:
+            V = vec_width if aligned and W % 2 == 0 else 1
+            sms = torch.cuda.get_device_properties(dev).multi_processor_count
+            blocks, copies, stride = smem_plan(M, W, n_rows, V, sms)
+            # the second kernel writes every output element: no zero fill
+            out = torch.empty(n_rows, W, dtype=torch.float32, device=dev)
+            scratch = torch.empty(blocks * n_rows * W, dtype=torch.float32, device=dev)
+            rc = _bind(lib, "gf_scatter_add_rows_smem", 4, scratch=True)(
+                *head, out.data_ptr(), scratch.data_ptr(), *tail, V, blocks, copies,
+                stride, stream,
+            )
+        else:
+            out = torch.zeros(n_rows, W, dtype=torch.float32, device=dev)
+            if variant == "vec":
+                rc = _bind(lib, "gf_scatter_add_rows_vec", 1)(
+                    *head, out.data_ptr(), *tail, vec_width, stream)
+            elif variant == "sorted":
+                sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                # an even number of blocks keeps the (index, row) pairs behind
+                # their row counts 8-byte aligned
+                blocks = 2 * max(1, min(sms // 2, -(-M // (2 * SORT_THREADS))))
+                scratch = torch.empty(
+                    n_rows * blocks + n_rows + 2 + 2 * M, dtype=torch.int32, device=dev)
+                rc = _bind(lib, "gf_scatter_add_rows_sorted", 2, scratch=True)(
+                    *head, out.data_ptr(), scratch.data_ptr(), *tail, vec_width, blocks,
+                    stream,
+                )
+            elif variant == "runs":
+                rc = _bind(lib, "gf_scatter_add_rows_runs", 0)(
+                    *head, out.data_ptr(), *tail, stream)
+            else:
+                rc = _bind(lib, "gf_scatter_add_rows", 0)(
+                    *head, out.data_ptr(), *tail, stream)
     if rc != 0:
-        raise RuntimeError(f"scatter_add_rows kernel launch failed: cudaError {rc}")
+        raise RuntimeError(
+            f"scatter_add_rows kernel ({variant}) launch failed: cudaError {rc}")
     LAUNCHES["scatter_add_rows"] += 1
     return out
 

@@ -8,11 +8,14 @@ Imports no JAX, so it runs on a GPU host that has only PyTorch:
 
 Every test skips when CUDA is absent. Tolerances: float32 atomic sums in
 another order — rtol 1e-5, atol 1e-4 (random updates) / exact for unique
-rows; a row gather is a copy — exact; the grid forward (corner sums in
-another order) rtol 1e-6, atol 1e-7; the grid backward's table gradients
-(atomic order) rtol 1e-5, atol 1e-6·max, its input gradients rtol 1e-4,
-atol 1e-6·max; a float32 frame on the card vs the CPU — 1e-5 absolute per
-pixel.
+rows; every scatter variant at the model's shapes — each sum of n terms
+within 2·n·2⁻²⁴·Σ|u| of the plain version's, the first-order rounding bound
+of two summation orders (up to 655,360 terms land on one row, where a fixed
+atol would either fail or check nothing); a row gather is a copy — exact;
+the grid forward (corner sums in another order) rtol 1e-6, atol 1e-7; the
+grid backward's table gradients (atomic order) rtol 1e-5, atol 1e-6·max,
+its input gradients rtol 1e-4, atol 1e-6·max; a float32 frame on the card
+vs the CPU — 1e-5 absolute per pixel.
 """
 
 import os
@@ -23,13 +26,18 @@ import pytest
 import torch
 
 from geneface_tpu_torch.ops import dense_view, fused_grid_encode, make_fused_grid_meta, make_grid_meta
+from geneface_tpu_torch.ops.gather import pick_gather_path
 from geneface_tpu_torch.ops.scatter import (
     LAUNCHES,
+    VARIANTS,
     gather_rows,
     gather_rows_plain,
     launch_gather_rows,
+    launch_scatter_add_rows,
+    pick_scatter_variant,
     scatter_add_rows,
     scatter_add_rows_plain,
+    scatter_variant_accepts,
 )
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
@@ -74,6 +82,113 @@ def test_scatter_kernel_unique_rows_exact(card):
     assert torch.equal(got, scatter_add_rows_plain(idx, packed, N))
 
 
+#: the scatter call sites of a 512² frame and a 65,536-ray training step
+SITE_SHAPES = {
+    "ambient_group_0": (655360, 16, 324),
+    "position_group_1": (655360, 224, 4096),
+    "ambient_group_1": (655360, 112, 5466),
+    "position_group_0": (655360, 32, 5832),
+    "serve_composite": (1081344, 6, 135168),
+    "train_composite": (655360, 6, 65536),
+    "frame_scatter": (135168, 6, 262144),
+}
+
+
+def _site_rows(pattern, M, R, card):
+    gen = torch.Generator(device="cuda").manual_seed(M + R)
+    if pattern == "random":
+        return torch.randint(-3, R + 3, (M,), device=card, generator=gen).int()
+    if pattern == "ray_major_holes":  # non-decreasing rows, -1 where a slot is empty
+        per = -(-M // R)
+        ray = (torch.arange(M, device=card) // per).int()
+        hole = torch.rand(M, device=card, generator=gen) < 0.1
+        return torch.where(hole, -1, ray).int()
+    if pattern == "all_equal":  # the worst contention
+        return torch.full((M,), R // 2, device=card, dtype=torch.int32)
+    assert pattern == "all_dropped"
+    return torch.where(torch.arange(M, device=card) % 2 == 0, -1, R).int()
+
+
+def _assert_within_rounding_bound(got, rows, upd, R):
+    ref = scatter_add_rows_plain(rows, upd, R)
+    kept = (rows >= 0) & (rows < R)
+    n = torch.bincount(rows[kept].long(), minlength=R).float()[:, None]
+    bound = 2.0 * n * 2.0**-24 * scatter_add_rows_plain(rows, upd.abs(), R)
+    bad = int(((got - ref).abs() > bound).sum())
+    assert bad == 0, f"{bad} sums beyond the rounding bound, max {float((got - ref).abs().max())}"
+
+
+@pytest.mark.parametrize("pattern", ["random", "ray_major_holes", "all_equal", "all_dropped"])
+@pytest.mark.parametrize("site", list(SITE_SHAPES))
+def test_every_scatter_variant_at_the_site_shapes(card, site, pattern):
+    M, W, R = SITE_SHAPES[site]
+    rows = _site_rows(pattern, M, R, card)
+    gen = torch.Generator(device="cuda").manual_seed(W)
+    upd32 = torch.randn(M, W, device=card, generator=gen)
+    tried = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        upd = upd32.to(dtype)
+        shape = (M, W, R, upd.element_size(), upd.data_ptr() % 16 == 0)
+        assert scatter_variant_accepts(pick_scatter_variant(*shape), *shape)
+        for variant in VARIANTS:
+            if not scatter_variant_accepts(variant, *shape):
+                continue
+            before = LAUNCHES["scatter_add_rows"]
+            got = launch_scatter_add_rows(rows, upd, R, variant=variant)
+            torch.cuda.synchronize()
+            assert LAUNCHES["scatter_add_rows"] == before + 1
+            assert got.dtype == torch.float32 and got.shape == (R, W)
+            _assert_within_rounding_bound(got, rows, upd, R)
+            tried += 1
+    assert tried >= 9  # atomic, vec and sorted take every one of these shapes
+
+
+@pytest.mark.parametrize(
+    "variant,W,R",
+    [(v, W, R) for W, R in [(16, 324), (6, 65536), (224, 4096)] for v in VARIANTS
+     if scatter_variant_accepts(v, 0, W, R, 4, True)],
+)
+def test_scatter_variant_with_no_updates(card, variant, W, R):
+    rows = torch.zeros(0, dtype=torch.int32, device=card)
+    upd = torch.zeros(0, W, device=card)
+    got = launch_scatter_add_rows(rows, upd, R, variant=variant)
+    torch.cuda.synchronize()
+    assert got.shape == (R, W) and not got.any()
+
+
+@pytest.mark.parametrize(
+    "variant,N,C",
+    [
+        ("runs", 262144, 135168),  # the frame scatter's shape
+        ("vec", 262144, 135168),
+        ("atomic", 262144, 135168),
+        ("sorted", 50000, 30000),  # sorted keeps one int per row in shared memory
+    ],
+)
+def test_scatter_variants_on_unique_rows_are_bit_exact(card, variant, N, C):
+    """Every kept row is hit once, so whatever merging a variant does finds
+    nothing to merge and the result is a copy."""
+    kept = C * 5 // 6
+    idx = torch.full((C,), N, dtype=torch.int32)
+    idx[:kept] = torch.randperm(N, generator=torch.Generator().manual_seed(0))[:kept].int()
+    packed = torch.rand(C, 6, generator=torch.Generator().manual_seed(1))
+    got = launch_scatter_add_rows(idx.to(card), packed.to(card), N, variant=variant).cpu()
+    assert torch.equal(got, scatter_add_rows_plain(idx, packed, N))
+
+
+def test_scatter_unaligned_updates_take_atomic(card):
+    base = torch.randn(5000 * 16 + 1, device=card)
+    upd = base[1:].view(5000, 16)  # contiguous, 4 bytes past an aligned row
+    rows = torch.randint(0, 324, (5000,), dtype=torch.int32, device=card)
+    assert pick_scatter_variant(5000, 16, 324, 4, upd.data_ptr() % 16 == 0) == "atomic"
+    with pytest.raises(ValueError):
+        launch_scatter_add_rows(rows, upd, 324, variant="vec")
+    _assert_within_rounding_bound(launch_scatter_add_rows(rows, upd, 324), rows, upd, 324)
+    # smem falls back to scalar loads on unaligned updates and stays right
+    _assert_within_rounding_bound(
+        launch_scatter_add_rows(rows, upd, 324, variant="smem"), rows, upd, 324)
+
+
 def test_scatter_kernel_rejects_mixed_devices(card):
     with pytest.raises(ValueError):
         scatter_add_rows(torch.zeros(4, dtype=torch.int32), torch.zeros(4, 6, device=card), 3)
@@ -99,6 +214,21 @@ def test_gather_kernel_matches_plain(card, M, R, W, dtype):
     torch.cuda.synchronize()
     assert LAUNCHES["gather_rows"] == before + 1
     assert got.dtype == torch.float32 and got.shape == (M, W)
+    assert torch.equal(got, gather_rows_plain(table, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("W", [6, 2])
+def test_gather_kernel_two_wide_path_exact(card, W, dtype):
+    """``W % 4 != 0``, ``W % 2 == 0``: 8-byte vectors (the composite's
+    backward gather at ``W`` 6)."""
+    rng = np.random.RandomState(W)
+    R, M = 65536, 655360
+    table = torch.from_numpy(rng.randn(R, W).astype(np.float32)).to(dtype).to(card)
+    idx = torch.from_numpy(rng.randint(-3, R + 3, M).astype(np.int32)).to(card)
+    got = launch_gather_rows(table, idx)
+    torch.cuda.synchronize()
+    assert pick_gather_path(W, table.element_size(), table.data_ptr(), got.data_ptr()) == 2
     assert torch.equal(got, gather_rows_plain(table, idx))
 
 

@@ -23,6 +23,7 @@ from geneface_tpu_torch.ops.scatter import (
     launch_gather_rows,
     scatter_add_rows,
 )
+from geneface_tpu_torch.ops.gather import pick_gather_path
 
 
 @pytest.mark.parametrize(
@@ -110,3 +111,22 @@ def test_each_backward_is_the_other_forward():
     ub = upd.detach().to(torch.bfloat16).requires_grad_(True)
     scatter_add_rows(rows, ub, R).sum().backward()
     assert ub.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize(
+    "W,itemsize,table_ptr,out_ptr,want",
+    [
+        (224, 4, 0, 0, 4),  # W % 4 == 0, aligned: 16-byte vectors
+        (8, 2, 8, 0, 4),  # a 16-bit table needs 8-byte alignment for 4 values
+        (6, 4, 0, 0, 2),  # the composite's rows: three 8-byte vectors
+        (2, 4, 512, 256, 2),
+        (6, 2, 4, 0, 2),  # 4-byte loads from a 16-bit table
+        (8, 4, 8, 0, 2),  # 16-byte vectors would be misaligned, 8-byte ones are not
+        (8, 4, 0, 8, 2),  # ... the output too
+        (5, 4, 0, 0, 1),  # odd W: scalar
+        (8, 4, 4, 0, 1),  # table 4 bytes past a boundary: scalar
+        (6, 2, 2, 0, 1),
+    ],
+)
+def test_gather_path_choice(W, itemsize, table_ptr, out_ptr, want):
+    assert pick_gather_path(W, itemsize, table_ptr, out_ptr) == want
