@@ -2,38 +2,53 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at the full width of
-``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` on a 512² synthetic 8-frame
-dataset, with random weights from a seeded ``torch.Generator``:
+Drives the port's four paths at the full width of
+``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
+on a 512² synthetic 8-frame dataset, with random weights from a seeded
+``torch.Generator``:
 
-- serving: the occupancy ball of ``bench.py`` (radius 0.6) and
+- head serving: the occupancy ball of ``bench.py`` (radius 0.6) and
   ``RADNeRFInfer.render_frames`` on ``cuda``, the frame checked against the
   port's plain CPU path;
-- training: ``RADNeRFTask.train_step`` for 20 steps of 65,536 rays (the
-  occupancy sweeps of steps 0 and 16 included), every loss finite, a
+- head training: ``RADNeRFTask.train_step`` for 20 steps of 65,536 rays
+  (the occupancy sweeps of steps 0 and 16 included), every loss finite, a
   non-zero gradient in every parameter group, and one step's loss and
-  gradients checked against the port's plain CPU path on 4,096 rays.
+  gradients checked against the port's plain CPU path on 4,096 rays;
+- torso serving: a torso checkpoint (the same head, seeded torso weights, a
+  torso occupancy planted over the lower half of the screen) through
+  ``RADNeRFInfer.render_frames``, checked against the CPU plain path, the
+  torso showing against the background inside its mask;
+- torso training: ``RADNeRFTorsoTask.train_step`` for 20 steps of 65,536
+  rays on the head checkpoint (``head_model_dir``; torso sweeps at steps 0
+  and 16), every loss finite, a non-zero gradient in both torso groups,
+  every head parameter bit-identical afterwards, and one step checked
+  against the CPU plain path on 4,096 rays.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
 that the path launched each kernel at every call site, then holds every
 kernel against its plain PyTorch version on the arguments captured at each
-call site of a real frame, step and sweep, and times kernel, plain version
-and library call there. At a scatter-add site every kernel variant that
-takes the site's shape is held to the plain version and timed in turns; the
-run fails if the wrapper's own choice is slower than another variant by
-more than 10% and 2 µs.
+call site of a real frame, step and sweep of each path (a grid site is
+named by the grid that owns its table: ``pos``, ``ambient`` or ``torso``),
+and times kernel, plain version and library call there. At a scatter-add
+site every kernel variant that takes the site's shape is held to the plain
+version and timed in turns; the run fails if the wrapper's own choice is
+slower than another variant by more than 10% and 2 µs.
 
 Prints, before the last line: the card's name and power limit, each
 kernel's registers, spills and static shared memory (ptxas), ms/frame,
 ms/step, the sweep's ms, rays/s, the capacities, the device time by stage
-and the idle share of a frame and of a step (``torch.profiler``; the tables
-go to ``smoke_out/``), the losses, one line per kernel call site (the
-variant chosen and every variant's time, the bound, the plain version and
-the library call), and one ``{"kernels": [...]}`` JSON line.
+and the idle share of a frame and of a step of each path
+(``torch.profiler``; the tables go to ``smoke_out/``), the losses, one line
+per kernel call site (the variant chosen and every variant's time, the
+bound, the plain version and the library call), and one ``{"kernels":
+[...]}`` JSON line listing every site of the four paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler, ``library_ms`` and each variant's the median of three windows;
-``ms_events`` adds the host's launch gaps.
+``ms_events`` adds the host's launch gaps. The profiler now and then records
+no device activity in a window: a measurement takes up to five windows, and
+then falls back to CUDA events behind a queued device sleep (counted on the
+``profiler:`` line); a phase profile it cannot get is "not measured".
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a card it exits 1 and prints no result.
 """
@@ -59,6 +74,10 @@ CHECK_RAYS = 4096
 #: (non-tensor-core) operations/s
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_OPS_S = 67e12
+#: profiler windows per measurement before it gives up (see :func:`profiled`),
+#: and the run's count of windows, misses and times taken by CUDA events
+PROFILER_TRIES = 5
+PROFILER = {"windows": 0, "windows_without_device_time": 0, "timed_by_events": 0}
 
 
 def production_cfg(data_dir: str, work_dir: str) -> dict:
@@ -112,7 +131,37 @@ def write_scene(root: str, hw: int, n_frames: int, seed: int = 0) -> dict:
         os.path.join(work, "model_ckpt_steps_0.ckpt"),
         {"state": {"params": state_dict_to_flax(model.state_dict()), "occ": occ}, "step": 0},
     )
+    # the torso checkpoint: the same head, seeded torso weights, the
+    # planted torso occupancy
+    torso = model_from_cfg(cfg, torso=True)
+    torso.reset_parameters(torch.Generator().manual_seed(seed + 1))
+    torso.load_state_dict(model.state_dict(), strict=False)
+    save_checkpoint(
+        os.path.join(root, "work_torso", "model_ckpt_steps_0.ckpt"),
+        {"state": {"params": state_dict_to_flax(torso.state_dict()), "occ": occ,
+                   "torso_occ": planted_torso_occupancy(cfg["grid_size"])}, "step": 0},
+    )
     return cfg
+
+
+def torso_cfg(cfg: dict) -> dict:
+    """The torso cells: the head config with ``base.yaml``'s torso keys, the
+    torso checkpoint's work dir and the head's as ``head_model_dir``."""
+    return dict(
+        cfg, work_dir=os.path.join(os.path.dirname(cfg["work_dir"]), "work_torso"),
+        head_model_dir=cfg["work_dir"], torso_shrink=0.8, torso_head_aware=False,
+        torso_individual_embedding_dim=8, density_thresh_torso=0.01, torso_train_mode=1,
+    )
+
+
+def planted_torso_occupancy(grid_size: int):
+    """Alpha 0.5 over the lower half of the screen (screen x > 0; the grid
+    is stored ``[y, x]``) — a fresh zero grid would mask every pixel out."""
+    import numpy as np
+
+    g = np.zeros((grid_size, grid_size), np.float32)
+    g[:, grid_size // 2:] = 0.5
+    return g.reshape(-1), np.float32(g.mean())
 
 
 def build_kernels() -> str:
@@ -173,26 +222,64 @@ def _device_events(prof):
     ]
 
 
-def device_ms(fn, iters: int = 20) -> float:
-    """Mean device time of ``fn()`` (the sum of the kernels, copies and
-    fills it runs, from ``torch.profiler``) over ``iters`` runs."""
+def profiled(run, activities):
+    """``torch.profiler`` over ``run()``: the first of up to
+    ``PROFILER_TRIES`` windows that recorded device activity, else ``None``.
+    The profiler now and then hands back a window without its device
+    activity, at times several in a row (seen on the card for kernels and
+    library calls alike); ``PROFILER`` counts the windows and the misses."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import profile
+
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=activities) as prof:
+            run()
+            torch.cuda.synchronize()
+        PROFILER["windows"] += 1
+        if any(e.self_device_time_total > 0 for e in _device_events(prof)):
+            return prof
+        PROFILER["windows_without_device_time"] += 1
+    return None
+
+
+def queued_events_ms(fn, iters: int = 20) -> float:
+    """Mean time of ``fn()`` between CUDA events over ``iters`` runs queued
+    behind a ~30 ms device sleep, so that the host's launch gaps do not
+    count: device time plus the device's own gaps between kernels."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    # the profiler now and then hands back a window without its device
-    # activity (seen on the card for both kernels and library calls): the
-    # window is taken again, at most three times
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        total_us = sum(e.self_device_time_total for e in _device_events(prof))
-        if total_us > 0:
-            return total_us / 1e3 / iters
-    raise RuntimeError("the profiler recorded no device time in three windows")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of ``fn()`` (the sum of the kernels, copies and
+    fills it runs, from ``torch.profiler``) over ``iters`` runs; where the
+    profiler misses ``PROFILER_TRIES`` windows in a row, the time of
+    :func:`queued_events_ms` (counted in ``PROFILER["timed_by_events"]``)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    prof = profiled(run, [ProfilerActivity.CUDA])
+    if prof is None:
+        PROFILER["timed_by_events"] += 1
+        return queued_events_ms(fn, iters)
+    return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3 / iters
 
 
 def _wrapper_patches():
@@ -209,8 +296,10 @@ def _wrapper_patches():
 
 
 def capture_calls(run) -> list:
-    """``(kind, args)`` of every kernel call that ``run()`` makes, with the
-    tensor arguments cloned, in call order."""
+    """``(kind, args, owner)`` of every kernel call that ``run()`` makes, with
+    the tensor arguments cloned, in call order. ``owner`` is ``(id(fused
+    grid meta), group)`` for the grid's calls (read from the calling
+    frame of ``ops/fused_grid.py``), else ``None``."""
     import torch
 
     calls = []
@@ -219,7 +308,10 @@ def capture_calls(run) -> list:
 
     def recorder(real, kind):
         def call(*args):
-            calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args)))
+            caller = sys._getframe(1).f_locals
+            owner = (id(caller["fmeta"]), caller["gi"]) if kind.startswith("grid") else None
+            calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
+                          owner))
             return real(*args)
 
         return call
@@ -353,33 +445,31 @@ def measure_gather(table, idx) -> dict:
     }
 
 
-def group_names(model) -> dict:
-    """Fast-view table shape → ``pos.group_<i>`` / ``ambient.group_<i>``."""
-    import torch
+def grid_names(model) -> dict:
+    """``id(fused grid meta)`` → the grid that owns the tables: ``pos``,
+    ``ambient`` and, for the torso model, ``torso`` (the torso grid's tables
+    have the ambient grid's shapes)."""
+    out = {id(model.pos_fused_meta): "pos", id(model.ambient_fused_meta): "ambient"}
+    if hasattr(model, "torso_fused_meta"):
+        out[id(model.torso_fused_meta)] = "torso"
+    return out
 
-    with torch.no_grad():
-        tables = model.grid_tables()
-    return {tuple(t.shape): f"{key}.group_{gi}"
-            for key, ts in tables.items() for gi, t in enumerate(ts)}
 
-
-def name_sites(calls, names: dict, path: str, sweep_chunk: int | None = None) -> dict:
-    """First captured call of each distinct site → ``{site: (kernel, kind,
-    args)}``; grid sites are named by their table, sweep chunks apart."""
+def name_sites(calls, grids: dict, path: str) -> dict:
+    """First captured call of each distinct site of one path → ``{site:
+    (kernel, kind, args)}``; grid sites are named by the grid and group that
+    own the table."""
     sites = {}
-    for kind, args in calls:
+    for kind, args, owner in calls:
         if kind == "grid_forward":
-            table, idx = args
-            where = "sweep" if idx.shape[0] == sweep_chunk else path
-            site = f"{where}.{names[tuple(table.shape)]}.forward_gather"
+            site = f"{path}.{grids[owner[0]]}.group_{owner[1]}.forward_gather"
             kernel = "gather_rows"
         elif kind == "grid_backward":
-            rows, upd, n_rows = args
-            site = f"{path}.{names[(n_rows, upd.shape[1])]}.backward_scatter"
+            site = f"{path}.{grids[owner[0]]}.group_{owner[1]}.backward_scatter"
             kernel = "scatter_add_rows"
         elif kind == "scatter_add_rows":
             rows, upd, n_rows = args
-            first = not any(kd == "scatter_add_rows" for _, kd, _ in sites.values())
+            first = f"{path}.composite_sums" not in sites
             site = f"{path}.composite_sums" if first else f"{path}.frame_scatter"
             kernel = "scatter_add_rows"
         else:
@@ -472,42 +562,61 @@ def kernel_entry(name: str, sites: list, launches: dict, ptxas: dict) -> dict:
     }
 
 
-def profile_frame(infer, out_dir: str, steady_ms: float) -> dict:
+def profile_frame(infer, out_dir: str, steady_ms: float, path: str = "serve") -> dict:
     """Device time of one steady frame by kernel, and the device-timeline
     span of each renderer stage (``gf::*`` ranges: its kernels plus the gaps
     between them), from ``torch.profiler``; the table goes to
-    ``out_dir/frame_profile.txt``. The idle share compares the kernels' sum
-    with the unprofiled frame's wall time ``steady_ms``."""
+    ``out_dir/<path>_frame_profile.txt``. The idle share compares the
+    kernels' sum with the unprofiled frame's wall time ``steady_ms``."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     infer.render_frame(0)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        infer.render_frame(0)
-        torch.cuda.synchronize()
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in _device_events(prof)),
-        key=lambda k: -k[1],
-    )
-    stages = {
-        e.key: e.device_time_total / 1e3
-        for e in prof.key_averages() if e.key.startswith("gf::")
-    }
-    busy = sum(k[1] for k in kernels)
-    with open(os.path.join(out_dir, "frame_profile.txt"), "w") as f:
-        f.write(f"steady wall {steady_ms:.3f} ms, device busy {busy:.3f} ms\n")
+    prof = profiled(lambda: infer.render_frame(0),
+                    [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    kernels, stages, busy = kernel_table(prof)
+    with open(os.path.join(out_dir, f"{path}_frame_profile.txt"), "w") as f:
+        f.write(f"steady wall {steady_ms:.3f} ms, device busy {fmt_ms(busy, ' ms')}\n")
         for name, ms in sorted(stages.items(), key=lambda s: -s[1]):
             f.write(f"stage {name:24s} {ms:9.3f} ms\n")
         for name, ms, n in kernels:
             f.write(f"{ms:9.3f} ms {n:5d}x {name}\n")
     return {"steady_ms": steady_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / steady_ms), "stages_ms": stages,
+            "idle_share": None if busy is None else max(0.0, 1.0 - busy / steady_ms),
+            "stages_ms": stages,
             "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
 
 
-def serve_phase(cfg, out_dir: str) -> tuple:
-    """The serving path: 4 frames through ``RADNeRFInfer.render_frames``,
+def kernel_table(prof) -> tuple:
+    """(kernels as ``(name, device ms, count)`` slowest first, ``gf::``
+    stage spans in ms, device busy ms) of a profiled window; a window that
+    :func:`profiled` could not get gives ``([], {}, None)``: not measured."""
+    if prof is None:
+        return [], {}, None
+    kernels = sorted(
+        ((e.key, e.self_device_time_total / 1e3, e.count) for e in _device_events(prof)),
+        key=lambda k: -k[1],
+    )
+    stages = {e.key: e.device_time_total / 1e3
+              for e in prof.key_averages() if e.key.startswith("gf::")}
+    return kernels, stages, sum(k[1] for k in kernels)
+
+
+def fmt_ms(x, unit: str = "") -> str:
+    return "not measured" if x is None else f"{x:.3f}{unit}"
+
+
+def n_grid_groups(model) -> tuple:
+    """(head groups, torso groups) of the fused grids."""
+    head = len(model.pos_fused_meta.groups) + len(model.ambient_fused_meta.groups)
+    torso = len(model.torso_fused_meta.groups) if hasattr(model, "torso_fused_meta") else 0
+    return head, torso
+
+
+def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
+    """A serving path: 4 frames through ``RADNeRFInfer.render_frames`` (the
+    head's checkpoint, or with ``cfg`` from :func:`torso_cfg` the torso's),
     checked against the CPU plain path; → (record, launches, sites)."""
     import numpy as np
     import torch
@@ -515,7 +624,7 @@ def serve_phase(cfg, out_dir: str) -> tuple:
     from geneface_tpu_torch.inference import RADNeRFInfer
     from geneface_tpu_torch.kernels import LAUNCHES
 
-    infer = RADNeRFInfer(cfg)  # cuda, bf16 MLPs
+    infer = RADNeRFInfer(cfg)  # cuda, bf16 head MLPs
     # warm-up (first launches, allocator), then the counted main path
     infer.render_frames(1)
     torch.cuda.synchronize()
@@ -528,21 +637,36 @@ def serve_phase(cfg, out_dir: str) -> tuple:
     launches = dict(LAUNCHES)
 
     if frames.shape != (RENDER_FRAMES, HW, HW, 3) or frames.dtype != np.uint8:
-        raise AssertionError(f"frames {frames.shape} {frames.dtype}")
+        raise AssertionError(f"{path}: frames {frames.shape} {frames.dtype}")
     # per frame: the composite sums and (with the ray cull) the frame
-    # scatter (K1), one row gather per grid group (K8)
-    n_groups = len(infer.model.pos_fused_meta.groups) + len(infer.model.ambient_fused_meta.groups)
+    # scatter (K1), one row gather per grid group of the head and the torso
+    # (K8)
     per_frame = 2 if infer.ray_capacity else 1
     want = {"scatter_add_rows": per_frame * RENDER_FRAMES,
-            "gather_rows": n_groups * RENDER_FRAMES}
+            "gather_rows": sum(n_grid_groups(infer.model)) * RENDER_FRAMES}
     if launches != want:
-        raise AssertionError(f"serving launches {launches}, expected {want}")
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
     last = infer.last_render
     if not torch.isfinite(last["rgb_map"]).all():
-        raise AssertionError("non-finite pixels")
-    bg = torch.as_tensor(infer.dataset[RENDER_FRAMES - 1]["bg_torso_img"], device=infer.device)
-    if float((last["rgb_map"] - bg).abs().max()) < 0.02:
-        raise AssertionError("the head does not show against the background")
+        raise AssertionError(f"{path}: non-finite pixels")
+    item = infer.dataset[RENDER_FRAMES - 1]
+    rgb = last["rgb_map"]
+    if infer.torso:
+        # the head over the torso-over-background, and that over the plain
+        # background inside the torso mask
+        bg = torch.as_tensor(item["bg_img"], device=infer.device)
+        torso_bg = last["torso_rgb_map"]
+        shown = {"head": float((rgb - torso_bg).abs().max()),
+                 "torso": float((torso_bg - bg).abs()[infer.torso_mask].max())}
+        print(f"{path}: torso mask covers {int(infer.torso_mask.sum())} of {HW * HW} pixels; "
+              f"largest difference, head over torso+background and torso over "
+              f"background: {json.dumps(shown)}")
+        if min(shown.values()) < 0.02:
+            raise AssertionError(f"{path}: the head or the torso does not show: {shown}")
+    else:
+        bg = torch.as_tensor(item["bg_torso_img"], device=infer.device)
+        if float((rgb - bg).abs().max()) < 0.02:
+            raise AssertionError("the head does not show against the background")
 
     times = []
     for _ in range(5):
@@ -554,10 +678,10 @@ def serve_phase(cfg, out_dir: str) -> tuple:
     C = infer.ray_capacity or HW * HW
     Mc = -(-C * int(cfg["mean_samples_per_ray"]) // 1024) * 1024
     n_samples = last["n_samples"].float()
-    print(f"serve: ms/frame {wall / RENDER_FRAMES * 1e3:.3f} (render_frames of "
+    print(f"{path}: ms/frame {wall / RENDER_FRAMES * 1e3:.3f} (render_frames of "
           f"{RENDER_FRAMES}, per-video set-up included); steady render_frame "
           f"median {sorted(times)[2]:.3f} ms")
-    print(f"serve: ray capacity C={C}, sample capacity Mc={Mc}, mean samples/ray "
+    print(f"{path}: ray capacity C={C}, sample capacity Mc={Mc}, mean samples/ray "
           f"{float(n_samples.mean()):.3f} over the C rendered rays "
           f"(hit rays: {int((n_samples > 0).sum())})")
 
@@ -565,29 +689,30 @@ def serve_phase(cfg, out_dir: str) -> tuple:
     cpu = RADNeRFInfer(cfg, device="cpu")
     cpu.prepare()
     if cpu.ray_capacity != infer.ray_capacity:
-        raise AssertionError(f"capacity {cpu.ray_capacity} on CPU vs {C}")
+        raise AssertionError(f"{path}: capacity {cpu.ray_capacity} on CPU vs {C}")
     ref = cpu.render_frame(0)["rgb_map"]
     gpu = infer.render_frame(0)["rgb_map"].cpu()
     diff = (gpu - ref).abs()
-    print(f"serve: frame 0 vs CPU plain path: max abs {float(diff.max()):.3e}, "
+    print(f"{path}: frame 0 vs CPU plain path: max abs {float(diff.max()):.3e}, "
           f"mean abs {float(diff.mean()):.3e}")
     # bf16 MLPs on both sides: a hidden unit may round the other way
     if float(diff.max()) > 1e-3 or float(diff.mean()) > 1e-6:
-        raise AssertionError("GPU frame disagrees with the CPU plain path")
+        raise AssertionError(f"{path}: GPU frame disagrees with the CPU plain path")
 
     calls = capture_calls(lambda: infer.render_frame(0))
-    sites = name_sites(calls, group_names(infer.model), "serve")
-    prof = profile_frame(infer, out_dir, sorted(times)[2])
-    print(f"serve: frame device time {prof['device_busy_ms']:.3f} ms of "
-          f"{prof['steady_ms']:.3f} ms wall (idle share {prof['idle_share']:.3f}); "
+    sites = name_sites(calls, grid_names(infer.model), path)
+    prof = profile_frame(infer, out_dir, sorted(times)[2], path)
+    print(f"{path}: frame device time {fmt_ms(prof['device_busy_ms'], ' ms')} of "
+          f"{prof['steady_ms']:.3f} ms wall (idle share {fmt_ms(prof['idle_share'])}); "
           "stages ms " + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
     record = {"ms_per_frame": wall / RENDER_FRAMES * 1e3, "steady_ms": times,
-              "ray_capacity": C, "sample_capacity": Mc, "profile": prof}
+              "ray_capacity": C, "sample_capacity": Mc, "profile": prof,
+              "frame_vs_cpu_max_abs": float(diff.max())}
     return record, launches, sites
 
 
 def train_cfg(cfg: dict) -> dict:
-    """The training cell: the full-width config at ``base.yaml``'s training
+    """A training cell: the full-width config at ``base.yaml``'s training
     keys, 65,536 rays per step, the occupancy sweep every 16 steps."""
     return dict(
         cfg, n_rays=TRAIN_RAYS, finetune_lips=False, update_extra_interval=16,
@@ -596,7 +721,7 @@ def train_cfg(cfg: dict) -> dict:
     )
 
 
-def check_grads_vs_cpu(task, batch) -> dict:
+def check_grads_vs_cpu(task, batch, path: str = "train") -> dict:
     """One step's loss and gradients on the card against the port's plain
     CPU path, on the trained task's parameters and occupancy, one batch (cut
     to ``CHECK_RAYS`` rays) and the same noises, with float32 MLPs on both
@@ -608,56 +733,100 @@ def check_grads_vs_cpu(task, batch) -> dict:
     the feature jumps (the fused layout's aliasing). Over twelve runs on the
     card that moved the loss by up to 2.4e-5 (relative) and a gradient by
     up to 2.3e-2 (relative L2, the position hash table); a fault such as a
-    missing gradient gives 1."""
+    missing gradient gives 1. The torso task's frozen head has no gradient
+    on either side.
+
+    The torso grid is looked up at ``x + Δxy``, with ``Δxy`` from the
+    torso's deform net, which card and CPU round differently in its last
+    bits; the grid's spatial slope, through which the deform net learns,
+    jumps at every cell and fused-block edge: a last-bit change of ``Δxy``
+    moves the torso grid's and deform net's gradients by percents (relative
+    L2), at times past the 0.1 bound. So the CPU side looks the torso grid
+    up at the card's ``Δxy`` (its values from the card, the gradient
+    through the CPU's own deform net), and ``Δxy`` itself is held card vs
+    CPU: max abs error <= 1e-4 of its largest magnitude."""
     import torch
 
     from geneface_tpu_torch.models.radnerf import OccupancyState
-    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
 
     cut = {k: (v[:CHECK_RAYS] if k in ("inds", "gt_img_u8", "bg_img_u8", "bg_torso_img_u8")
                else v) for k, v in batch.items()}
     noises = torch.rand(CHECK_RAYS, generator=torch.Generator().manual_seed(5))
     params = {k: v.detach().cpu() for k, v in task.model.state_dict().items()}
     occ = [x.cpu() for x in task.occ]
+    deform = {}
+
+    def same_deform(dev):
+        def hook(module, inputs, dxy):
+            deform[dev] = dxy.detach().cpu()
+            if dev == "cpu":  # the card's values, plus an exact zero that carries the gradient
+                return deform["cuda"] + (dxy - dxy.detach())
+            return None
+
+        return hook
+
     out = {}
     for dev in ("cuda", "cpu"):
-        t = RADNeRFTask(task.cfg, device=dev, dtype=torch.float32)
+        t = type(task)(task.cfg, device=dev, dtype=torch.float32)
         t.build()
         t.model.load_state_dict(params)
         t.set_occupancy(OccupancyState(*[x.to(t.device) for x in occ]))
-        t._spr_bucket, t._latk_bucket = task._spr_bucket, task._latk_bucket
+        if hasattr(task, "torso_occ"):
+            t.torso_occ = type(task.torso_occ)(*[x.to(t.device) for x in task.torso_occ])
+            t.model.torso_deform_net.register_forward_hook(same_deform(dev))
+        else:
+            t._spr_bucket, t._latk_bucket = task._spr_bucket, task._latk_bucket
         loss, losses = t.loss_fn(t.device_batch(cut, task._step), noises.to(t.device), train=True)
         loss.backward()
         out[dev] = (float(loss.detach()), float(losses["mean_samples"]),
-                    {n: p.grad.detach().cpu().double() for n, p in t.model.named_parameters()})
+                    {n: p.grad.detach().cpu().double() for n, p in t.model.named_parameters()
+                     if p.grad is not None})
     (lg, sg, gg), (lc, sc_, gc) = out["cuda"], out["cpu"]
-    worst = 0.0
-    for n, g in gc.items():
-        err = float((gg[n] - g).norm() / g.norm()) if g.norm() > 0 else float(gg[n].norm())
-        worst = max(worst, err)
-        if not err <= 0.1:
-            raise AssertionError(f"gradient of {n}: relative L2 error {err} card vs CPU")
+    if gg.keys() != gc.keys() or not gc:
+        raise AssertionError(f"{path}: gradients of {sorted(gg)} on the card, {sorted(gc)} on CPU")
+    errs = {n: float((gg[n] - g).norm() / g.norm()) if g.norm() > 0 else float(gg[n].norm())
+            for n, g in gc.items()}
+    bad = {n: e for n, e in errs.items() if not e <= 0.1}
+    if bad:
+        raise AssertionError(f"{path}: relative L2 error of gradients card vs CPU {bad}; "
+                             f"all: {errs}")
     # the march rounds its positions as on the CPU: the same samples
     if abs(lg - lc) > 1e-3 * abs(lc) or sg != sc_:
-        raise AssertionError(f"loss {lg} vs {lc} / mean samples {sg} vs {sc_}")
+        raise AssertionError(f"{path}: loss {lg} vs {lc} / mean samples {sg} vs {sc_}")
     res = {"rays": CHECK_RAYS, "mlp_dtype": "float32", "loss_cuda": lg, "loss_cpu": lc,
-           "mean_samples": sg, "worst_grad_rel_l2": worst}
-    print("train: card vs CPU plain path on one step passed: " + json.dumps(res))
+           "mean_samples": sg, "worst_grad_rel_l2": max(errs.values()),
+           "n_params_with_grad": len(gc)}
+    if deform:
+        scale = float(deform["cpu"].abs().max())
+        res["deform_max_abs_err"] = float((deform["cuda"] - deform["cpu"]).abs().max())
+        res["deform_max_abs"] = scale
+        if not res["deform_max_abs_err"] <= 1e-4 * scale:
+            raise AssertionError(f"{path}: torso deform card vs CPU: {res}")
+    print(f"{path}: card vs CPU plain path on one step passed: " + json.dumps(res))
     return res
 
 
-def train_phase(cfg, out_dir: str) -> tuple:
-    """The training path: ``RADNeRFTask.train_step`` for ``TRAIN_STEPS``
+def train_phase(cfg, out_dir: str, path: str = "train") -> tuple:
+    """A training path: ``RADNeRFTask.train_step`` (or, with ``cfg`` from
+    :func:`torso_cfg`, ``RADNeRFTorsoTask.train_step``) for ``TRAIN_STEPS``
     steps (sweeps at steps 0 and 16); → (record, launches, sites)."""
     import numpy as np
     import torch
 
     from geneface_tpu_torch.kernels import LAUNCHES
     from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
-    from geneface_tpu_torch.training.optim import param_groups, radnerf_label_fn
+    from geneface_tpu_torch.tasks.radnerf_torso import RADNeRFTorsoTask
+    from geneface_tpu_torch.training.optim import (
+        param_groups,
+        radnerf_label_fn,
+        torso_label_fn,
+    )
 
-    task = RADNeRFTask(train_cfg(cfg))  # cuda, bf16 MLPs
+    torso = path.startswith("torso")
+    task = (RADNeRFTorsoTask if torso else RADNeRFTask)(train_cfg(cfg))  # cuda, bf16 MLPs
     task.build()
+    head = {n: p.detach().clone() for n, p in task.model.named_parameters()
+            if not p.requires_grad}
     batches = task.train_batches()
     interval = int(task.cfg["update_extra_interval"])
     for k in LAUNCHES:
@@ -675,72 +844,125 @@ def train_phase(cfg, out_dir: str) -> tuple:
         spr.append(float(out["mean_samples"]))
     wall = time.perf_counter() - t_all
     launches = dict(LAUNCHES)
-    n_groups = len(task.model.pos_fused_meta.groups) + len(task.model.ambient_fused_meta.groups)
+    n_head, n_torso = n_grid_groups(task.model)
     n_sweeps = len(range(0, TRAIN_STEPS, interval))
-    chunks = 16
-    # per step: the grid gathers and the composite's backward gather (K8),
-    # the composite sums and the grid backward scatters (K1); per sweep one
-    # gather per group and chunk
-    want = {
-        "gather_rows": TRAIN_STEPS * (n_groups + 1) + n_sweeps * chunks * n_groups,
-        "scatter_add_rows": TRAIN_STEPS * (1 + n_groups),
-    }
+    if torso:
+        # per step: the head's grid gathers at the slab and the torso's (K8),
+        # the torso grid's backward scatters (K1); per torso sweep one
+        # gather per torso group
+        sweep_chunks = 1
+        want = {
+            "gather_rows": TRAIN_STEPS * (n_head + n_torso) + n_sweeps * n_torso,
+            "scatter_add_rows": TRAIN_STEPS * n_torso,
+        }
+    else:
+        # per step: the grid gathers and the composite's backward gather
+        # (K8), the composite sums and the grid backward scatters (K1); per
+        # sweep one gather per group and chunk
+        sweep_chunks = 16
+        want = {
+            "gather_rows": TRAIN_STEPS * (n_head + 1) + n_sweeps * sweep_chunks * n_head,
+            "scatter_add_rows": TRAIN_STEPS * (1 + n_head),
+        }
     if launches != want:
-        raise AssertionError(f"training launches {launches}, expected {want}")
-    print("train: losses " + json.dumps([round(x, 6) for x in losses]))
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+    print(f"{path}: losses " + json.dumps([round(x, 6) for x in losses]))
     if not all(np.isfinite(losses)):
-        raise AssertionError("non-finite training loss")
+        raise AssertionError(f"{path}: non-finite training loss")
     groups_nonzero = {}
-    for g in param_groups(task.model, radnerf_label_fn, {"net": 1, "grid": 1, "att": 1}):
+    label_fn, mults = ((torso_label_fn, {"net": 1, "grid": 1, "frozen": 0}) if torso
+                       else (radnerf_label_fn, {"net": 1, "grid": 1, "att": 1}))
+    for g in param_groups(task.model, label_fn, mults):
+        if g["name"] == "frozen":  # the torso task's head: checked below
+            continue
         groups_nonzero[g["name"]] = sum(
             int(p.grad is not None and bool((p.grad != 0).any())) for p in g["params"]
         )
         if not groups_nonzero[g["name"]]:
-            raise AssertionError(f"parameter group {g['name']} has a zero gradient on the card")
-    print(f"train: parameters with a non-zero gradient on the card, by group: {groups_nonzero}")
+            raise AssertionError(f"{path}: parameter group {g['name']} has a zero gradient "
+                                 "on the card")
+    print(f"{path}: parameters with a non-zero gradient on the card, by group: "
+          f"{groups_nonzero}")
+    if torso:
+        moved = [n for n, p in task.model.named_parameters()
+                 if n in head and not torch.equal(p, head[n])]
+        if moved or not head:
+            raise AssertionError(f"{path}: frozen head parameters moved: {moved}")
+        print(f"{path}: all {len(head)} head parameters bit-identical after "
+              f"{TRAIN_STEPS} steps")
     sweep_steps = [i for i in range(TRAIN_STEPS) if i % interval == 0]
     plain = [t for i, t in enumerate(step_ms) if i % interval and i > 1]
     median = sorted(plain)[len(plain) // 2]
     n_rays = int(task.cfg["n_rays"])
-    mspr = task.render_kwargs()["mean_samples_per_ray"]
-    Mc = min(int(-(-n_rays * mspr // 1024) * 1024), n_rays * int(task.cfg["max_steps"]))
-    print(f"train: median ms/step {median:.3f} (steps without a sweep, first two left out); "
-          f"sweep steps {[round(step_ms[i], 3) for i in sweep_steps]} ms; "
+    print(f"{path}: median ms/step {median:.3f} (steps without a sweep, first two left "
+          f"out); sweep steps {[round(step_ms[i], 3) for i in sweep_steps]} ms; "
           f"{n_rays / median * 1e3:.0f} rays/s; {TRAIN_STEPS} steps in {wall:.3f} s")
-    print(f"train: sample capacity Mc={Mc} (mean_samples_per_ray bucket {mspr}, "
-          f"lattice_K {task.render_kwargs()['lattice_K']}); mean samples/ray per step "
-          + json.dumps([round(x, 3) for x in spr]))
+    record = {"step_ms": step_ms, "median_step_ms": median, "losses": losses,
+              "mean_samples_per_ray": spr, "rays_per_s": n_rays / median * 1e3,
+              "nonzero_grad_params": groups_nonzero}
+    if torso:
+        print(f"{path}: head samples per ray (walk, slab of {task.cfg['max_steps']}) per step "
+              + json.dumps([round(x, 3) for x in spr]))
+    else:
+        mspr = task.render_kwargs()["mean_samples_per_ray"]
+        Mc = min(int(-(-n_rays * mspr // 1024) * 1024), n_rays * int(task.cfg["max_steps"]))
+        record["sample_capacity"] = Mc
+        print(f"{path}: sample capacity Mc={Mc} (mean_samples_per_ray bucket {mspr}, "
+              f"lattice_K {task.render_kwargs()['lattice_K']}); mean samples/ray per step "
+              + json.dumps([round(x, 3) for x in spr]))
 
-    prof = profile_train_step(task, next(batches), out_dir, median)
-    print(f"train: step device time {prof['device_busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms "
-          f"wall (idle share {prof['idle_share']:.3f}, {prof['n_device_ops']} device "
+    prof = profile_train_step(task, next(batches), out_dir, median, path)
+    print(f"{path}: step device time {fmt_ms(prof['device_busy_ms'], ' ms')} of "
+          f"{prof['wall_ms']:.3f} ms wall (idle share {fmt_ms(prof['idle_share'])}, "
+          f"{prof['n_device_ops']} device "
           "operations); stage spans ms "
           + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
-    grad_check = check_grads_vs_cpu(task, next(batches))
+    sweep = sweep_ms(task)
+    print(f"{path}: sweep alone {sweep:.3f} ms (CUDA events, one unprofiled sweep)")
+    record.update(profile=prof, sweep_ms=sweep,
+                  grad_check=check_grads_vs_cpu(task, next(batches), path))
 
     # the kernel sites of one step without a sweep and of one sweep
-    names = group_names(task.model)
-    calls = capture_calls(lambda: task.train_step(next(batches)))
+    grids = grid_names(task.model)
+    sweep_path = "torso_sweep" if torso else "sweep"
+    sites = name_sites(capture_calls(lambda: task.train_step(next(batches))), grids, path)
     saved_step = task._step
     task._step = interval * (saved_step // interval + 1)
-    calls += capture_calls(task.maybe_update_occ)
+    sites.update(name_sites(capture_calls(task.maybe_update_occ), grids, sweep_path))
     task._step = saved_step
-    sites = name_sites(calls, names, "train", sweep_chunk=task.grid_size**3 // chunks)
-    record = {"step_ms": step_ms, "median_step_ms": median, "losses": losses,
-              "mean_samples_per_ray": spr, "sample_capacity": Mc,
-              "rays_per_s": n_rays / median * 1e3, "grad_check": grad_check,
-              "nonzero_grad_params": groups_nonzero, "profile": prof}
+    record["sweep_launches_per_site"] = sweep_chunks
     return record, launches, sites
 
 
-def profile_train_step(task, batch, out_dir: str, wall_ms: float) -> dict:
+def sweep_ms(task) -> float:
+    """Wall time of one occupancy sweep (the head's density sweep, or the
+    torso's alpha sweep) between CUDA events, the step counter set to a
+    sweep step and restored."""
+    import torch
+
+    saved = task._step, task.occ, getattr(task, "torso_occ", None)
+    task._step = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    task.maybe_update_occ()
+    end.record()
+    torch.cuda.synchronize()
+    task._step = saved[0]
+    task.set_occupancy(saved[1])
+    if saved[2] is not None:
+        task.torso_occ = saved[2]
+    return start.elapsed_time(end)
+
+
+def profile_train_step(task, batch, out_dir: str, wall_ms: float, path: str = "train") -> dict:
     """One step without a sweep: the spans of forward, backward and
     optimizer on the device timeline (CUDA events, an unprofiled step), the
     render's ``gf::`` stage spans and the device time by kernel
     (``torch.profiler``, a second step; table in
-    ``out_dir/train_step_profile.txt``)."""
+    ``out_dir/<path>_step_profile.txt``)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity
 
     def staged():
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
@@ -761,24 +983,18 @@ def profile_train_step(task, batch, out_dir: str, wall_ms: float) -> dict:
 
     staged()
     spans = staged()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        staged()
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in _device_events(prof)),
-        key=lambda k: -k[1],
-    )
-    stages = {e.key: e.device_time_total / 1e3
-              for e in prof.key_averages() if e.key.startswith("gf::")}
+    kernels, stages, busy = kernel_table(
+        profiled(staged, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
     stages.update(spans)
-    busy = sum(k[1] for k in kernels)
-    with open(os.path.join(out_dir, "train_step_profile.txt"), "w") as f:
-        f.write(f"steady step wall {wall_ms:.3f} ms, device busy {busy:.3f} ms\n")
+    with open(os.path.join(out_dir, f"{path}_step_profile.txt"), "w") as f:
+        f.write(f"steady step wall {wall_ms:.3f} ms, device busy {fmt_ms(busy, ' ms')}\n")
         for name, ms in sorted(stages.items(), key=lambda s: -s[1]):
             f.write(f"stage {name:24s} {ms:9.3f} ms\n")
         for name, ms, n in kernels:
             f.write(f"{ms:9.3f} ms {n:5d}x {name}\n")
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
-            "idle_share": max(0.0, 1.0 - busy / wall_ms), "stages_ms": stages,
+            "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall_ms),
+            "stages_ms": stages,
             "n_device_ops": sum(k[2] for k in kernels),
             "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:15]]}
 
@@ -814,19 +1030,26 @@ def main() -> int:
     shutil.rmtree(root, ignore_errors=True)
     try:
         cfg = write_scene(root, HW, N_FRAMES)
-        t1 = time.time()
-        serve, serve_launches, serve_sites = serve_phase(cfg, out_dir)
-        t2 = time.time()
-        train, train_launches, train_sites = train_phase(cfg, out_dir)
+        phases = [("serve", serve_phase, cfg), ("train", train_phase, cfg),
+                  ("torso_serve", serve_phase, torso_cfg(cfg)),
+                  ("torso_train", train_phase, torso_cfg(cfg))]
+        record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
+        for path, phase, phase_cfg in phases:
+            t1 = time.time()
+            record[path], launches[path], sites = phase(phase_cfg, out_dir, path)
+            took[path] = round(time.time() - t1, 1)
+            chunks = record[path].get("sweep_launches_per_site", 1)
+            per_call.update({s: chunks for s in sites if s.split(".")[0].endswith("sweep")})
+            all_sites.update(sites)
         t3 = time.time()
-        per_call = {s: 16 for s in train_sites if s.startswith("sweep.")}
-        sites = measure_sites({**serve_sites, **train_sites}, per_call)
-        print(f"phases: serve {t2 - t1:.1f} s, train {t3 - t2:.1f} s, "
-              f"kernel sites {time.time() - t3:.1f} s")
-        launches = {"serve": serve_launches, "train": train_launches}
+        sites = measure_sites(all_sites, per_call)
+        print(f"phases s: {json.dumps(took)}, kernel sites {time.time() - t3:.1f} s")
+        print(f"profiler: {PROFILER['windows']} windows, "
+              f"{PROFILER['windows_without_device_time']} without device time; "
+              f"{PROFILER['timed_by_events']} kernel-site times taken by CUDA events instead")
         kernels_line = {"kernels": [kernel_entry("scatter_add_rows", sites, launches, ptxas),
                                     kernel_entry("gather_rows", sites, launches, ptxas)]}
-        record = {"gpu": smi, "serve": serve, "train": train, **kernels_line}
+        record.update(kernels_line, profiler=PROFILER)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)
         print(json.dumps(kernels_line))

@@ -179,6 +179,7 @@ class RADNeRFDataset:
             "H": self.H,
             "W": self.W,
             "idx": int(sample.get("idx", idx)),
+            "pose": self.poses6[idx : idx + 1],  # [1, 6], the torso's input
             "pose_matrix": self.poses[idx],
             "cond_wins": get_cond_window(self.conds, idx, cfg.get("smo_win_size", 5)),
         }

@@ -1,11 +1,14 @@
-"""RAD-NeRF head inference: checkpoint + landmarks → frames (port of
-``geneface_tpu/inference/radnerf_infer.py``, head only).
+"""RAD-NeRF inference: checkpoint + landmarks → frames (port of
+``geneface_tpu/inference/radnerf_infer.py``, head or head+torso).
 
-Per video: load the checkpoint (JAX-written or the port's own), build the
-per-video constants once — the 13-slab k-DOP of the occupied cells, the ray
-capacity probed from a few dataset poses, the packed occupancy blocks and
-the dense grid views — then render every frame through the culled compact
-renderer. :meth:`RADNeRFInfer.render_frames` returns uint8 frames;
+Per video: load the checkpoint (JAX-written or the port's own; one whose
+state holds ``torso_occ`` is a torso checkpoint), build the per-video
+constants once — the 13-slab k-DOP of the occupied cells, the ray capacity
+probed from a few dataset poses, the packed occupancy blocks, the dense
+grid views and, for the torso, its occupancy mask over the screen — then
+render every frame through the culled compact renderer, and the torso
+under the head over the plain background.
+:meth:`RADNeRFInfer.render_frames` returns uint8 frames;
 :meth:`RADNeRFInfer.render_video` muxes them with :func:`save_mp4`.
 """
 
@@ -27,11 +30,14 @@ from geneface_tpu_torch.inference.landmark_postprocess import (
     get_win_conds,
 )
 from geneface_tpu_torch.models.radnerf import (
+    TorsoOccupancyState,
     kdop_hit,
     model_from_cfg,
     occupancy_view,
     occupied_kdop,
     render_rays_radnerf,
+    render_rays_radnerf_torso,
+    torso_occupancy_mask,
 )
 from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
 
@@ -77,9 +83,9 @@ def save_mp4(frames: np.ndarray, out_path: str, fps: int = 25,
 
 
 class RADNeRFInfer:
-    """Head-only renderer. ``device`` defaults to ``cuda`` (raises without a
-    card); ``dtype`` is the field MLPs' compute dtype (bf16, as the JAX
-    model's default)."""
+    """Head or head+torso renderer. ``device`` defaults to ``cuda`` (raises
+    without a card); ``dtype`` is the head MLPs' compute dtype (bf16, as the
+    JAX model's default; the torso MLPs compute in float32)."""
 
     def __init__(self, cfg, work_dir: str | None = None, device=None,
                  dtype: torch.dtype = torch.bfloat16):
@@ -90,13 +96,16 @@ class RADNeRFInfer:
         if path is None:
             raise FileNotFoundError(f"no model_ckpt_steps_*.ckpt under {work_dir}")
         state = load_checkpoint(path)["state"]
-        if "torso_occ" in state:
-            raise NotImplementedError("torso checkpoints are not ported yet")
-        self.model = model_from_cfg(cfg, dtype=dtype)
+        self.torso = "torso_occ" in state
+        self.model = model_from_cfg(cfg, torso=self.torso, dtype=dtype)
         sd = {k: torch.from_numpy(v) for k, v in flax_to_state_dict(state["params"]).items()}
         self.model.load_state_dict(sd)
         self.model.to(self.device).eval()
         self.occ_grid = torch.tensor(np.asarray(state["occ"][1]), device=self.device)
+        self.torso_occ = TorsoOccupancyState(*[
+            torch.tensor(np.asarray(x), dtype=torch.float32, device=self.device)
+            for x in state["torso_occ"]
+        ]) if self.torso else None
 
         data_dir = cfg.get("data_dir") or (
             f"{cfg.get('binary_data_dir', 'data/binary/videos')}/{cfg.get('video_id', '')}"
@@ -122,6 +131,8 @@ class RADNeRFInfer:
         self.cull_kdop = None
         self._occ_view = None
         self._tables = None
+        self._torso_tables = None
+        self.torso_mask = None  # [H*W] bool, per video
         self.last_render = None  # output dict of the latest frame
 
     # ------------------------------------------------------------------
@@ -162,13 +173,22 @@ class RADNeRFInfer:
 
     def prepare(self) -> None:
         """Per-video constants: ray capacity + k-DOP, occupancy blocks, grid
-        views."""
+        views; for the torso its grid views and its occupancy mask over the
+        dataset's screen coordinates."""
         self.ray_capacity = self._pick_ray_capacity()
         if self.ray_capacity is None:
             self.cull_kdop = None
         self._occ_view = occupancy_view(self.occ_grid, self.render_kwargs["bound"])
         with torch.inference_mode():
             self._tables = self.model.grid_tables()
+            if self.torso:
+                self._torso_tables = self.model.torso_grid_tables()
+                self.torso_mask = torso_occupancy_mask(
+                    self.torso_occ,
+                    torch.as_tensor(self.dataset.bg_coords, device=self.device),
+                    self.render_kwargs["grid_size"],
+                    float(self.cfg.get("density_thresh_torso", 0.01)),
+                )
 
     @torch.inference_mode()
     def render_frame(self, i: int, conds: np.ndarray | None = None) -> dict:
@@ -189,14 +209,30 @@ class RADNeRFInfer:
         def field_fn(xyz, dirs):
             return model(xyz, dirs, cond_feat, ind, tables)
 
-        out = render_rays_radnerf(
-            field_fn,
-            torch.as_tensor(item["rays_o"], device=dev),
-            torch.as_tensor(item["rays_d"], device=dev),
-            self._occ_view,
-            bg_color=torch.as_tensor(item["bg_torso_img"], device=dev),
-            ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop,
-            **self.render_kwargs,
+        rays = (torch.as_tensor(item["rays_o"], device=dev),
+                torch.as_tensor(item["rays_d"], device=dev))
+        cull = dict(ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop)
+        if not self.torso:
+            out = render_rays_radnerf(
+                field_fn, *rays, self._occ_view,
+                bg_color=torch.as_tensor(item["bg_torso_img"], device=dev),
+                **cull, **self.render_kwargs,
+            )
+            self.last_render = out
+            return out
+        pose6 = torch.as_tensor(item["pose"], device=dev)
+        t_codes = model.torso_individual_codes
+        t_ind = t_codes[0] if t_codes is not None else None
+
+        def torso_fn(xy, head_rgb, head_ws):
+            return model.forward_torso(xy, pose6, t_ind, head_rgb, head_ws, self._torso_tables)
+
+        out = render_rays_radnerf_torso(
+            field_fn, torso_fn, *rays,
+            torch.as_tensor(item["bg_coords"], device=dev), self._occ_view, self.torso_occ,
+            density_thresh_torso=float(self.cfg.get("density_thresh_torso", 0.01)),
+            bg_color=torch.as_tensor(item["bg_img"], device=dev),
+            torso_mask=self.torso_mask, **cull, **self.render_kwargs,
         )
         self.last_render = out
         return out

@@ -1,32 +1,45 @@
-"""RAD-NeRF head: field, condition encoders and the compact renderer."""
+"""RAD-NeRF head and torso: fields, condition encoders and the renderers."""
 
 from geneface_tpu_torch.models.radnerf.radnerf import COND_IN_DIMS, RADNeRF
+from geneface_tpu_torch.models.radnerf.radnerf_torso import RADNeRFTorso, sample_torso_occupancy
 from geneface_tpu_torch.models.radnerf.renderer import (
     OccupancyState,
     OccupancyView,
+    TorsoOccupancyState,
     init_occupancy,
+    init_torso_occupancy,
     kdop_hit,
     make_aabb,
     mark_untrained_grid,
     occupancy_view,
     occupied_kdop,
     render_rays_radnerf,
+    render_rays_radnerf_torso,
+    torso_occupancy_mask,
     update_extra_state,
+    update_torso_occupancy,
 )
 
 __all__ = [
     "COND_IN_DIMS",
     "RADNeRF",
+    "RADNeRFTorso",
+    "sample_torso_occupancy",
     "OccupancyState",
     "OccupancyView",
+    "TorsoOccupancyState",
     "init_occupancy",
+    "init_torso_occupancy",
     "mark_untrained_grid",
     "update_extra_state",
+    "update_torso_occupancy",
     "kdop_hit",
     "make_aabb",
     "occupancy_view",
     "occupied_kdop",
     "render_rays_radnerf",
+    "render_rays_radnerf_torso",
+    "torso_occupancy_mask",
     "model_from_cfg",
 ]
 
@@ -64,9 +77,20 @@ _CFG_KEYS = {
 }
 
 
-def model_from_cfg(cfg, **extra) -> RADNeRF:
+_TORSO_CFG_KEYS = {
+    "torso_shrink": 0.8,
+    "torso_individual_embedding_dim": 8,
+    "torso_head_aware": False,
+}
+
+
+def model_from_cfg(cfg, torso: bool = False, **extra) -> RADNeRF:
     """Config → :class:`RADNeRF` keyword arguments (the config→kwargs map of
-    the JAX task's ``model_from_cfg``); ``extra`` overrides, e.g. ``dtype``."""
+    the JAX task's ``model_from_cfg``), or with ``torso`` a
+    :class:`RADNeRFTorso` with the config's torso keys; ``extra``
+    overrides, e.g. ``dtype``."""
     kw = {k: cfg.get(k, v) for k, v in _CFG_KEYS.items()}
+    if torso:
+        kw.update({k: cfg.get(k, v) for k, v in _TORSO_CFG_KEYS.items()})
     kw.update(extra)
-    return RADNeRF(**kw)
+    return (RADNeRFTorso if torso else RADNeRF)(**kw)

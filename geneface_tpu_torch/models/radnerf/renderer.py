@@ -1,5 +1,5 @@
-"""Occupancy state, k-DOP ray cull and the compact render path (port of
-``geneface_tpu/models/radnerf/renderer.py``).
+"""Occupancy state, k-DOP ray cull, the compact and the slab render paths
+and the torso composite (port of ``geneface_tpu/models/radnerf/renderer.py``).
 
 A frame runs: the 13-slab k-DOP cull of the full frame; the lattice march of
 the kept rays; waterfilled compaction; one ``[Mc, 8]`` record gather; the
@@ -13,6 +13,13 @@ Training renders a ray batch without the cull, with the march jittered by
 per-ray ``noises`` and stop-gradient rays; the occupancy state starts from
 :func:`init_occupancy` + :func:`mark_untrained_grid` and is refreshed by
 :func:`update_extra_state`.
+
+Without ``lattice_K`` and ``mean_samples_per_ray`` a ray batch renders
+through the walk (:func:`march_rays_train`), the field on the whole
+``[N, max_steps]`` slab and :func:`composite_rays`: the route of the torso
+task's frozen head. :func:`render_rays_radnerf_torso` composites the head
+over the torso and the torso over the background, with the 2-D torso
+occupancy of :class:`TorsoOccupancyState`.
 """
 
 from __future__ import annotations
@@ -25,11 +32,14 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from geneface_tpu_torch.models.radnerf.radnerf_torso import sample_torso_occupancy
 from geneface_tpu_torch.ops import (
     compact_gather,
+    composite_rays,
     dilate_grid3d,
     make_compact_plan,
     march_rays_lattice,
+    march_rays_train,
     near_far_from_aabb,
     occupied_cell_aabb,
     pack_occ_blocks,
@@ -50,6 +60,11 @@ __all__ = [
     "OccupancyView",
     "occupancy_view",
     "render_rays_radnerf",
+    "TorsoOccupancyState",
+    "init_torso_occupancy",
+    "update_torso_occupancy",
+    "torso_occupancy_mask",
+    "render_rays_radnerf_torso",
 ]
 
 
@@ -216,10 +231,12 @@ def kdop_hit(rays_o, rays_d, kdop, min_near: float) -> torch.Tensor:
 
 class OccupancyView(NamedTuple):
     """Per-video constants derived from the occupancy grid: the packed 8³
-    blocks the march tests and the tight occupied box it fast-forwards to."""
+    blocks the lattice march tests, the tight occupied box it fast-forwards
+    to, and the grid itself, which the walk reads."""
 
     blocks: torch.Tensor  # [(H/8)^3, 16] int32
     tight: torch.Tensor  # [6]
+    grid: torch.Tensor  # [1, H, H, H] bool
 
 
 def occupancy_view(occ_grid: torch.Tensor, bound: float) -> OccupancyView:
@@ -227,7 +244,9 @@ def occupancy_view(occ_grid: torch.Tensor, bound: float) -> OccupancyView:
     lattice march needs a single cascade."""
     if occ_grid.shape[0] != 1:
         raise NotImplementedError("the port marches a single cascade (bound <= 1)")
-    return OccupancyView(pack_occ_blocks(occ_grid[0]), occupied_cell_aabb(occ_grid[0], bound))
+    return OccupancyView(
+        pack_occ_blocks(occ_grid[0]), occupied_cell_aabb(occ_grid[0], bound), occ_grid
+    )
 
 
 def render_rays_radnerf(
@@ -240,15 +259,22 @@ def render_rays_radnerf(
     min_near: float,
     max_steps: int,
     grid_size: int,
-    lattice_K: int,
-    mean_samples_per_ray: float,
+    lattice_K: int | None = None,
+    mean_samples_per_ray: float | None = None,
+    dt_gamma: float = 1.0 / 256,
     bg_color: torch.Tensor | float = 1.0,
     T_thresh: float = 1e-4,
     ray_capacity: int | None = None,
     cull_kdop: tuple | None = None,
     noises: torch.Tensor | None = None,
 ) -> dict:
-    """Lattice march + compact field eval + composite + background.
+    """March + field eval + composite + background.
+
+    With ``mean_samples_per_ray`` (and ``lattice_K``): the lattice march and
+    the compact field eval. Without it: the walk and the field on the whole
+    slab (``dt_gamma`` sets the walk's step beyond the uniform-dt regime);
+    then ``n_samples`` counts each ray's valid samples and ``march_span``
+    is ``None``.
 
     With ``ray_capacity`` (and ``cull_kdop``) only the first
     ``ray_capacity`` rays that meet the k-DOP are rendered; overflow rays
@@ -263,7 +289,7 @@ def render_rays_radnerf(
     common = dict(
         bound=bound, min_near=min_near, max_steps=max_steps, grid_size=grid_size,
         lattice_K=lattice_K, mean_samples_per_ray=mean_samples_per_ray,
-        T_thresh=T_thresh,
+        dt_gamma=dt_gamma, T_thresh=T_thresh,
     )
     if ray_capacity:
         if cull_kdop is None:
@@ -303,6 +329,10 @@ def render_rays_radnerf(
             "march_span": inner["march_span"],
         }
 
+    if not mean_samples_per_ray:
+        return _render_slab(field_fn, rays_o, rays_d, occ, noises, bg_color, **common)
+    if not lattice_K:
+        raise NotImplementedError("the compact path marches the lattice: set lattice_K")
     with record_function("gf::march"):
         rays_o, rays_d = rays_o.detach(), rays_d.detach()
         nears, fars = near_far_from_aabb(rays_o, rays_d, make_aabb(bound, dev), min_near)
@@ -366,4 +396,141 @@ def render_rays_radnerf(
         "ambient_sum": sums[:, 5],
         "n_samples": plan.n,
         "march_span": march.span,
+    }
+
+
+def _render_slab(field_fn, rays_o, rays_d, occ: OccupancyView, noises, bg_color, *,
+                 bound, min_near, max_steps, grid_size, dt_gamma, T_thresh, **_) -> dict:
+    """The walk, the field on every slot of the ``[N, max_steps]`` slab and
+    :func:`composite_rays` (the JAX renderer's route without compaction)."""
+    N = rays_o.shape[0]
+    dev = rays_o.device
+    with record_function("gf::march"):
+        ro, rd = rays_o.detach().float(), rays_d.detach().float()
+        nears, fars = near_far_from_aabb(ro, rd, make_aabb(bound, dev), min_near)
+        if noises is None:
+            noises = torch.zeros(N, device=dev)
+        march = march_rays_train(
+            ro, rd, occ.grid, nears, fars, noises, bound=bound, dt_gamma=dt_gamma,
+            max_steps=max_steps, grid_size=grid_size,
+        )
+    with record_function("gf::field"):
+        S = march.ts.shape[-1]
+        xyz = fma_f32(march.ts[..., None], rd[:, None, :], ro[:, None, :]).clamp(-bound, bound)
+        dirs = rd[:, None, :].expand_as(xyz)
+        sigma, rgb, ambient = field_fn(xyz.reshape(-1, 3), dirs.reshape(-1, 3))
+    with record_function("gf::composite"):
+        comp = composite_rays(
+            sigma.reshape(N, S), rgb.reshape(N, S, 3), march.dts, march.depth_ts, march.valid,
+            ambients=ambient.abs().sum(dim=-1).reshape(N, S), T_thresh=T_thresh,
+        )
+        ws = comp["weights_sum"]
+        image = (comp["image"] + (1.0 - ws)[:, None] * bg_color).clamp(0.0, 1.0)
+        span = (fars - nears).clamp(min=1e-6)
+        depth = torch.where(nears < 1e30, (comp["depth"] - nears).clamp(min=0.0) / span, 0.0)
+    return {
+        "rgb_map": image,
+        "depth_map": depth,
+        "weights_sum": ws,
+        "ambient_sum": comp["ambient_sum"],
+        "n_samples": march.valid.sum(dim=-1),
+        "march_span": None,
+    }
+
+
+# ------------------------------------------------------------------ torso ----
+class TorsoOccupancyState(NamedTuple):
+    """2-D torso alpha grid ``[H*H]`` (row = y, column = x) and its mean."""
+
+    density_grid: object
+    mean_density: object
+
+
+def init_torso_occupancy(grid_size: int, device=None) -> TorsoOccupancyState:
+    return TorsoOccupancyState(
+        density_grid=torch.zeros(grid_size * grid_size, device=device),
+        mean_density=torch.zeros((), device=device),
+    )
+
+
+@torch.no_grad()
+def update_torso_occupancy(
+    alpha_fn: Callable,  # xy [M, 2] -> alpha [M]
+    occ: TorsoOccupancyState,
+    jitter: torch.Tensor,  # [H*H, 2] uniform in [0, 1)
+    *,
+    grid_size: int,
+    decay: float = 0.95,
+) -> TorsoOccupancyState:
+    """Alpha sweep at the jittered cell centres (x-major order), stored
+    transposed as ``[y, x]``, dilated by a 5×5 max-pool, then
+    ``max(decay·density, new)`` and the new mean. The jitter arrives as
+    ``jitter``."""
+    H = grid_size
+    half_cell = 1.0 / H
+    r = torch.arange(H, dtype=torch.float32, device=occ.density_grid.device)
+    gx, gy = torch.meshgrid(r, r, indexing="ij")
+    xy = torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+    xy = (2.0 * xy / (H - 1) - 1.0) * (1.0 - half_cell)
+    xy = xy + (jitter * 2 - 1) * half_cell
+    tmp = alpha_fn(xy).float().reshape(H, H).T  # [y, x]
+    tmp = torch.nn.functional.max_pool2d(tmp[None, None], 5, stride=1, padding=2)[0, 0]
+    density = torch.maximum(occ.density_grid * decay, tmp.reshape(-1))
+    return TorsoOccupancyState(density, density.mean())
+
+
+def torso_occupancy_mask(
+    torso_occ: TorsoOccupancyState,
+    bg_coords: torch.Tensor,  # [N, 2]
+    grid_size: int,
+    density_thresh_torso: float,
+) -> torch.Tensor:
+    """[N] bool: the torso grid at each screen coordinate exceeds
+    ``min(density_thresh_torso, mean)`` (strictly). Serving computes it
+    once per video."""
+    thresh = torch.clamp(torso_occ.mean_density, max=density_thresh_torso)
+    return sample_torso_occupancy(torso_occ.density_grid, bg_coords, grid_size) > thresh
+
+
+def render_rays_radnerf_torso(
+    field_fn: Callable,  # head field (xyz, dirs) -> (sigma, rgb, ambient)
+    torso_fn: Callable,  # (xy [N, 2], head_rgb [N, 3], head_ws [N, 1]) -> (alpha, color, dx)
+    rays_o: torch.Tensor,
+    rays_d: torch.Tensor,
+    bg_coords: torch.Tensor,  # [N, 2] in [-1, 1]
+    occ: OccupancyView,
+    torso_occ: TorsoOccupancyState,
+    *,
+    density_thresh_torso: float,
+    bg_color: torch.Tensor | float = 1.0,
+    torso_mask: torch.Tensor | None = None,
+    **head_kwargs,
+) -> dict:
+    """The head (``render_rays_radnerf`` with ``head_kwargs``, background 0,
+    no gradient) over the torso, the torso over ``bg_color``:
+    ``torso_bg = color·α·mask + bg·(1 − α·mask)`` and
+    ``image = clip(head_rgb + (1 − head_ws)·torso_bg)``. ``torso_mask`` [N]
+    is the per-video :func:`torso_occupancy_mask`; ``None`` samples the
+    grid here (training)."""
+    grid_size = head_kwargs["grid_size"]
+    with torch.no_grad():
+        head = render_rays_radnerf(field_fn, rays_o, rays_d, occ, bg_color=0.0, **head_kwargs)
+    if torso_mask is None:
+        torso_mask = torso_occupancy_mask(torso_occ, bg_coords, grid_size, density_thresh_torso)
+    mask = torso_mask.float().reshape(-1, 1)
+    with record_function("gf::torso"):
+        ws = head["weights_sum"][:, None]
+        alpha, color, deform = torso_fn(bg_coords, head["rgb_map"], ws)
+        torso_alpha = alpha * mask
+        torso_bg = color * mask * torso_alpha + bg_color * (1.0 - torso_alpha)
+        image = (head["rgb_map"] + (1.0 - ws) * torso_bg).clamp(0.0, 1.0)
+    return {
+        "rgb_map": image,
+        "depth_map": head["depth_map"],
+        "weights_sum": head["weights_sum"],
+        "torso_alpha_map": torso_alpha,
+        "torso_rgb_map": torso_bg,
+        "deform": deform,
+        "n_samples": head["n_samples"],
+        "march_span": head["march_span"],
     }

@@ -6,7 +6,13 @@ from geneface_tpu_torch.ops.compaction import (
     segmented_cumsum,
     waterfill_valid,
 )
-from geneface_tpu_torch.ops.encoders import GridMeta, make_grid_meta, sh_encode
+from geneface_tpu_torch.ops.encoders import (
+    GridMeta,
+    freq_encode,
+    freq_encode_output_dim,
+    make_grid_meta,
+    sh_encode,
+)
 from geneface_tpu_torch.ops.fused_grid import (
     FusedGridMeta,
     dense_view,
@@ -15,7 +21,9 @@ from geneface_tpu_torch.ops.fused_grid import (
 )
 from geneface_tpu_torch.ops.raymarch import (
     MarchResult,
+    composite_rays,
     march_rays_lattice,
+    march_rays_train,
     near_far_from_aabb,
     occupied_cell_aabb,
     pack_occ_blocks,
@@ -38,6 +46,8 @@ __all__ = [
     "segmented_cumsum",
     "waterfill_valid",
     "GridMeta",
+    "freq_encode",
+    "freq_encode_output_dim",
     "make_grid_meta",
     "sh_encode",
     "FusedGridMeta",
@@ -45,7 +55,9 @@ __all__ = [
     "fused_grid_encode",
     "make_fused_grid_meta",
     "MarchResult",
+    "composite_rays",
     "march_rays_lattice",
+    "march_rays_train",
     "near_far_from_aabb",
     "occupied_cell_aabb",
     "pack_occ_blocks",

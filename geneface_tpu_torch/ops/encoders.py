@@ -1,5 +1,6 @@
-"""SH direction encoding and multi-resolution grid metadata (port of the
-parts of ``geneface_tpu/ops/encoders.py`` the fused grid backend uses)."""
+"""Frequency and SH encodings and multi-resolution grid metadata (port of
+the parts of ``geneface_tpu/ops/encoders.py`` that the fused grid backend
+and the torso use)."""
 
 from __future__ import annotations
 
@@ -8,10 +9,33 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["sh_encode", "GridMeta", "make_grid_meta", "HASH_PRIMES"]
+__all__ = [
+    "freq_encode",
+    "freq_encode_output_dim",
+    "sh_encode",
+    "GridMeta",
+    "make_grid_meta",
+    "HASH_PRIMES",
+]
 
 #: prime-xor hash constants of the reference grid encoder
 HASH_PRIMES = (1, 2654435761, 805459861, 3674653429, 2097192037, 1434869437, 2165219737)
+
+
+def freq_encode(x: torch.Tensor, degree: int) -> torch.Tensor:
+    """NeRF positional encoding ``[x, sin(2^0 x), cos(2^0 x), sin(2^1 x),
+    ...]``: the ``D`` input columns, then per frequency a ``sin`` block and
+    a ``cos`` block of ``D`` columns each."""
+    cols = [x]
+    for f in range(degree):
+        scaled = x * (2.0**f)
+        cols.append(torch.sin(scaled))
+        cols.append(torch.cos(scaled))
+    return torch.cat(cols, dim=-1)
+
+
+def freq_encode_output_dim(input_dim: int, degree: int) -> int:
+    return input_dim * (1 + 2 * degree)
 
 
 def sh_encode(d: torch.Tensor, degree: int = 4) -> torch.Tensor:

@@ -1,12 +1,18 @@
-"""Lattice ray march over the bit-packed occupancy grid (port of the
-unpaired path of ``geneface_tpu/ops/raymarch.py``).
+"""Ray marching and slab compositing (port of ``geneface_tpu/ops/raymarch.py``:
+the unpaired lattice march, the walk and the slab composite).
 
 In the uniform-dt regime (every face config: one cascade, ``grid_size >=
 max_steps``) the reference CUDA walk visits exactly the lattice
 ``t0 + k*dt``, so marching is testing occupancy at lattice points: fast
 forward each ray to the tight occupied box, test ``lattice_K`` points
 against 8³-cell bit-packed blocks, and rank-select the first ``max_steps``
-occupied points into a prefix-dense ``[N, max_steps]`` slab.
+occupied points into a prefix-dense ``[N, max_steps]`` slab
+(:func:`march_rays_lattice`, the compact render path).
+
+:func:`march_rays_train` is the walk itself, one step of every ray per
+iteration, as the JAX package's ``while_loop``; the training render of the
+torso task's frozen head takes it, with :func:`composite_rays` over the
+whole ``[N, max_steps]`` slab.
 """
 
 from __future__ import annotations
@@ -21,12 +27,16 @@ __all__ = [
     "pack_occ_blocks",
     "occupied_cell_aabb",
     "march_rays_lattice",
+    "march_rays_train",
+    "composite_rays",
     "MarchResult",
     "fma_f32",
 ]
 
 _SQRT3 = math.sqrt(3.0)
 _FMAX = torch.finfo(torch.float32).max
+#: walk iterations between the host's checks for a live ray
+_CHECK_EVERY = 8
 
 
 def near_far_from_aabb(
@@ -53,9 +63,10 @@ class MarchResult(NamedTuple):
     dts: torch.Tensor  # [N, S] step size, 0 where invalid
     valid: torch.Tensor  # [N, S] bool, prefix-dense (slot j valid iff j < n_i)
     depth_ts: torch.Tensor  # [N, S] post-step t used for depth
-    span: torch.Tensor  # [] int32: lattice steps any ray needs in the box
-    ks: torch.Tensor  # [N, S] int32 lattice step of each sample
-    t_start: torch.Tensor  # [N] per-ray lattice origin
+    # lattice march only (None from the walk):
+    span: torch.Tensor | None = None  # [] int32: lattice steps any ray needs in the box
+    ks: torch.Tensor | None = None  # [N, S] int32 lattice step of each sample
+    t_start: torch.Tensor | None = None  # [N] per-ray lattice origin
 
 
 def pack_occ_blocks(occ0: torch.Tensor) -> torch.Tensor:
@@ -105,7 +116,8 @@ def fma_f32(a, b, c):
     cell boundary flips with the last bit of its position."""
     if not torch.is_tensor(b):  # a float32 constant, as the reference sees it
         b = float(torch.tensor(b, dtype=torch.float32))
-    return (a.double() * b + c.double()).float()
+    c = c.double() if torch.is_tensor(c) else float(torch.tensor(c, dtype=torch.float32))
+    return (a.double() * b + c).float()
 
 
 def march_rays_lattice(
@@ -188,3 +200,160 @@ def march_rays_lattice(
         ks=ks,
         t_start=t_start,
     )
+
+
+def _skip_bytes(occ0: torch.Tensor) -> torch.Tensor:
+    """Chebyshev skip field of a ``[H, H, H]`` bool grid → ``[H³]`` int64:
+    bit 0 is the cell's occupancy, bit ``k`` (1..4) says that an occupied
+    cell lies within Chebyshev radius ``2^k - 1``. The lowest zero bit
+    gives a radius whose whole box is empty, so the walk may jump to the
+    box's exit without passing an occupied lattice point."""
+    x = occ0.float()[None, None]
+    byte = occ0.reshape(-1).to(torch.int64)
+    # box radii add up under chaining: 1, 1+2, 3+4, 7+8, each separable
+    for bit, r in enumerate((1, 2, 4, 8), start=1):
+        for axis in range(3):
+            k = [1, 1, 1]
+            k[axis] = 2 * r + 1
+            pad = [0, 0, 0]
+            pad[axis] = r
+            x = torch.nn.functional.max_pool3d(x, tuple(k), stride=1, padding=tuple(pad))
+        byte = byte | (x.reshape(-1).to(torch.int64) << bit)
+    return byte
+
+
+def march_rays_train(
+    rays_o: torch.Tensor,  # [N, 3]
+    rays_d: torch.Tensor,  # [N, 3]
+    occ_grid: torch.Tensor,  # [1, H, H, H] bool
+    nears: torch.Tensor,  # [N]
+    fars: torch.Tensor,  # [N]
+    noises: torch.Tensor,  # [N] in [0, 1): jitter of the start t
+    *,
+    bound: float = 1.0,
+    dt_gamma: float = 0.0,
+    max_steps: int = 16,
+    grid_size: int = 128,
+) -> MarchResult:
+    """The walk of the reference CUDA march (``kernel_march_rays_train``):
+    start at ``near + dt(near)·noise``; at an occupied cell emit a sample and
+    step ``dt = clamp(t·dt_gamma, dt_min, dt_max)``; at an empty cell skip
+    to the next voxel boundary in ``dt`` micro-steps. Every iteration
+    advances every live ray once, for at most ``2·H + 2·max_steps``
+    iterations (the JAX package's cap).
+
+    Two branches, as in the JAX package. In the uniform-dt regime (every
+    face config) one iteration jumps a whole empty region along the ray's
+    lattice, as far as :func:`_skip_bytes` proves empty:
+    ``t += max(1, ceil((target - t)/dt - 1e-5))·dt``. Otherwise each
+    iteration takes one micro-step of the do-while. Positions ``o + t·d``
+    and the lattice steps round once, as the reference compiler's fused
+    multiply-adds do. The host reads whether any ray is still live every
+    ``_CHECK_EVERY`` iterations (iterations past that change nothing).
+    One cascade only (``bound <= 1``): more raise ``NotImplementedError``.
+    """
+    if occ_grid.shape[0] != 1:
+        raise NotImplementedError("the walk marches a single cascade (bound <= 1)")
+    N = rays_o.shape[0]
+    S = max_steps
+    H = grid_size
+    dev = rays_o.device
+    o = rays_o.detach().float()
+    d = rays_d.detach().float()
+    inv_d = 1.0 / d
+    dt_max = 2.0 * _SQRT3 / H
+    dt_min = min(dt_max, 2.0 * _SQRT3 / max_steps)
+    uniform = dt_min == dt_max
+    mb = min(1.0, bound)
+    strides = torch.tensor([H * H, H, 1], device=dev)
+
+    def dt_of(t):
+        return (t * dt_gamma).clamp(dt_min, dt_max)
+
+    t = fma_f32(dt_of(nears), noises.float(), nears)
+    n_valid = torch.zeros(N, dtype=torch.int64, device=dev)
+    # (t, dt, t + dt) of each slot, and one spill slot that rays which emit
+    # nothing write to
+    buf = torch.zeros(N, S + 1, 3, device=dev)
+    if uniform:
+        byte = _skip_bytes(occ_grid[0])
+        dt = float(torch.tensor(dt_min, dtype=torch.float32))
+        cs = 2.0 * mb / H
+        # bits 1..4 of the skip byte → the largest 2^k - 1 whose bit is clear
+        radius = torch.tensor(
+            [15.0 if not v & 8 else 7.0 if not v & 4 else 3.0 if not v & 2 else
+             1.0 if not v & 1 else 0.0 for v in range(16)], device=dev,
+        )
+    else:
+        occ_flat = occ_grid.reshape(-1)
+        tt_target = torch.full((N,), -math.inf, device=dev)
+    for it in range(2 * H + 2 * S):
+        alive = (t < fars) & (n_valid < S)
+        if it % _CHECK_EVERY == 0 and not bool(alive.any()):
+            break
+        pos = fma_f32(t[:, None], d, o).clamp(-bound, bound)  # [N, 3]
+        cell = (0.5 * (pos / mb + 1.0) * H).clamp(0.0, float(H - 1)).to(torch.int64)
+        lin = (cell * strides).sum(dim=-1)
+        cf = cell.float()
+        if uniform:
+            b = byte[lin]
+            occ = (b & 1) > 0
+            r = radius[(b >> 1) & 15][:, None]
+            # the exit of the empty box [cell - r, cell + r] along the ray
+            face = fma_f32(torch.where(d > 0, cf + r + 1.0, cf - r), cs, -mb)
+            target = t + ((face - pos) * inv_d).amin(dim=-1).clamp(min=0.0)
+            emit = alive & occ
+            step = torch.full_like(t, dt)
+        else:
+            occ = occ_flat[lin]
+            pending = t < tt_target
+            face = fma_f32(cf + 0.5 + 0.5 * torch.sign(d), 2.0 / H, -1.0) * mb
+            t_skip = ((face - pos) * inv_d).amin(dim=-1)
+            emit = alive & ~pending & occ
+            step = dt_of(t)
+            # start a skip at an empty cell; keep the old target otherwise
+            tt_target = torch.where(alive & ~pending & ~occ, t + t_skip.clamp(min=0.0), tt_target)
+        slot = torch.where(emit, n_valid, S)[:, None, None].expand(N, 1, 3)
+        buf.scatter_(1, slot, torch.stack([t, step, t + step], dim=-1)[:, None, :])
+        n_valid = n_valid + emit.to(torch.int64)
+        if uniform:
+            # lattice-preserving jump past the whole empty region
+            k = torch.ceil((target - t) / dt - 1e-5).clamp(min=1.0)
+            t = torch.where(alive, torch.where(occ, t + dt, fma_f32(k, dt, t)), t)
+        else:
+            t = torch.where(alive, t + step, t)
+    valid = torch.arange(S, device=dev)[None, :] < n_valid[:, None]
+    ts, dts, dpts = buf[:, :S].unbind(dim=-1)
+    return MarchResult(ts=ts, dts=dts, valid=valid, depth_ts=dpts)
+
+
+def composite_rays(
+    sigmas: torch.Tensor,  # [N, S]
+    rgbs: torch.Tensor,  # [N, S, 3]
+    dts: torch.Tensor,  # [N, S]
+    depth_ts: torch.Tensor,  # [N, S]
+    valid: torch.Tensor,  # [N, S] bool
+    ambients: torch.Tensor | None = None,  # [N, S] per-sample ambient norm
+    T_thresh: float = 1e-4,
+) -> dict:
+    """Front-to-back compositing over padded slabs:
+    ``T_k = exp(-Σ_{j<k} σ_j·dt_j)`` (an exclusive cumsum), weights
+    ``α_k·T_k`` for the samples with ``T_k >= T_thresh`` (a mask without a
+    gradient: the reference loop stops after the sample that crosses the
+    threshold), and the ambient norm summed unweighted over those samples.
+    → image [N, 3], weights_sum, depth, ambient_sum [N], weights [N, S]."""
+    sd = torch.where(valid, sigmas * dts, 0.0)
+    cum = torch.cumsum(sd, dim=-1)
+    T_before = torch.exp(-(cum - sd))
+    alpha = 1.0 - torch.exp(-sd)
+    include = (T_before >= T_thresh).detach() & valid
+    weights = torch.where(include, alpha * T_before, 0.0)
+    out = {
+        "image": (weights[..., None] * rgbs).sum(dim=1),
+        "weights_sum": weights.sum(dim=-1),
+        "depth": (weights * depth_ts).sum(dim=-1),
+        "weights": weights,
+    }
+    if ambients is not None:
+        out["ambient_sum"] = torch.where(include, ambients, 0.0).sum(dim=-1)
+    return out

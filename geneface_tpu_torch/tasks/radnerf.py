@@ -74,14 +74,7 @@ class RADNeRFTask(Task):
         self.model = model_from_cfg(cfg, dtype=self.dtype)
         self.model.reset_parameters(torch.Generator().manual_seed(seed))
         self.model.to(dev)
-        data_dir = cfg.get("binary_data_dir", "data/binary/videos")
-        video_id = cfg.get("video_id", "")
-        ds_dir = cfg.get("data_dir") or (f"{data_dir}/{video_id}" if video_id else data_dir)
-        self.train_ds = RADNeRFDataset("train", ds_dir, cfg, training=True)
-        self.val_ds = RADNeRFDataset("val", ds_dir, cfg, training=True)
-
-        self.grid_size = int(cfg.get("grid_size", 128))
-        self.bound = float(cfg.get("bound", 1))
+        self.load_datasets()
         occ = init_occupancy(self.grid_size, self.bound, device=dev)
         self.set_occupancy(mark_untrained_grid(
             occ, self.train_ds.poses, self.train_ds.intrinsics, self.grid_size, self.bound,
@@ -93,6 +86,18 @@ class RADNeRFTask(Task):
         self._spr_bucket = None  # None -> the config's mean_samples_per_ray
         self._latk_bucket = None  # None -> the config's lattice_K
         self._checked = False
+
+    def load_datasets(self) -> None:
+        """The train and val splits of the config's video, and the grid
+        geometry."""
+        cfg = self.cfg
+        data_dir = cfg.get("binary_data_dir", "data/binary/videos")
+        video_id = cfg.get("video_id", "")
+        ds_dir = cfg.get("data_dir") or (f"{data_dir}/{video_id}" if video_id else data_dir)
+        self.train_ds = RADNeRFDataset("train", ds_dir, cfg, training=True)
+        self.val_ds = RADNeRFDataset("val", ds_dir, cfg, training=True)
+        self.grid_size = int(cfg.get("grid_size", 128))
+        self.bound = float(cfg.get("bound", 1))
 
     def set_occupancy(self, occ) -> None:
         """Install an occupancy state and its packed view for the march."""

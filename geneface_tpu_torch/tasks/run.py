@@ -17,12 +17,16 @@ import os
 
 from geneface_tpu_torch.config.config import load_config
 from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+from geneface_tpu_torch.tasks.radnerf_torso import RADNeRFTorsoTask
 from geneface_tpu_torch.training.trainer import Trainer
 
 __all__ = ["TASKS", "resolve_task", "main"]
 
 #: ``task_cls`` of a config → the port's task class
-TASKS = {"geneface_tpu.tasks.radnerf.RADNeRFTask": RADNeRFTask}
+TASKS = {
+    "geneface_tpu.tasks.radnerf.RADNeRFTask": RADNeRFTask,
+    "geneface_tpu.tasks.radnerf_torso.RADNeRFTorsoTask": RADNeRFTorsoTask,
+}
 
 
 def resolve_task(task_cls: str):

@@ -19,7 +19,14 @@ import torch
 
 from geneface_tpu_torch.convert import flax_path
 
-__all__ = ["radnerf_label_fn", "param_groups", "MultiGroupAdam", "build_optimizer"]
+__all__ = [
+    "radnerf_label_fn",
+    "torso_label_fn",
+    "param_groups",
+    "MultiGroupAdam",
+    "build_optimizer",
+    "build_torso_optimizer",
+]
 
 
 def radnerf_label_fn(path: str) -> str:
@@ -29,6 +36,16 @@ def radnerf_label_fn(path: str) -> str:
     if "cond_att_net" in path:
         return "att"
     return "net"
+
+
+def torso_label_fn(path: str) -> str:
+    """Group label of a flax path in the torso task: the torso grid, the
+    torso nets (and codes), and the frozen head."""
+    if "torso_embeddings" in path:
+        return "grid"
+    if "torso" in path or "head_aware" in path:
+        return "net"
+    return "frozen"
 
 
 def param_groups(model: torch.nn.Module, label_of_path: Callable[[str], str],
@@ -111,9 +128,15 @@ class MultiGroupAdam(torch.optim.Optimizer):
 def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:
     """The RAD-NeRF head's optimizer: net ×1, grid ×10, att ×5, eps 1e-15,
     the config's betas, clipping and ``guard_nan_grads``."""
+    groups = param_groups(model, radnerf_label_fn, {"net": 1.0, "grid": 10.0, "att": 5.0})
+    return _adam_from_cfg(groups, schedule, cfg)
+
+
+def _adam_from_cfg(groups: list, schedule: Callable, cfg) -> MultiGroupAdam:
+    """:class:`MultiGroupAdam` with eps 1e-15 and the config's betas,
+    clipping and ``guard_nan_grads``."""
     if int(cfg.get("accumulate_grad_batches", 1)) > 1:
         raise NotImplementedError("accumulate_grad_batches > 1 is not ported")
-    groups = param_groups(model, radnerf_label_fn, {"net": 1.0, "grid": 10.0, "att": 5.0})
     return MultiGroupAdam(
         groups, schedule,
         b1=cfg.get("optimizer_adam_beta1", 0.9), b2=cfg.get("optimizer_adam_beta2", 0.999),
@@ -121,3 +144,22 @@ def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGro
         clip_grad_value=cfg.get("clip_grad_value", 0),
         guard_nan_grads=cfg.get("guard_nan_grads", True),
     )
+
+
+def build_torso_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:
+    """The torso task's optimizer: torso nets ×1, torso grid ×10, and the
+    head in a ``frozen`` group with multiplier 0.
+
+    The JAX task keeps the frozen group in its Adam with multiplier 0, so
+    its head never moves. Here the frozen parameters get
+    ``requires_grad_(False)`` and stay out of the optimizer instead, which
+    is the same update: the head renders under no gradient, so its
+    gradients are zero, its moments stay zero and its update is
+    ``0·0``; and with zero gradients it cannot make ``guard_nan_grads``
+    skip a step."""
+    groups = param_groups(model, torso_label_fn, {"net": 1.0, "grid": 10.0, "frozen": 0.0})
+    for g in groups:
+        if g["mult"] == 0.0:
+            for p in g["params"]:
+                p.requires_grad_(False)
+    return _adam_from_cfg([g for g in groups if g["mult"] != 0.0], schedule, cfg)

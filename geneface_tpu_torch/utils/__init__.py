@@ -7,6 +7,7 @@ from geneface_tpu_torch.utils.camera import (
 from geneface_tpu_torch.utils.checkpoint import (
     get_last_checkpoint,
     load_checkpoint,
+    restore_partial,
     save_checkpoint,
 )
 
@@ -17,5 +18,6 @@ __all__ = [
     "nerf_matrix_to_ngp",
     "get_last_checkpoint",
     "load_checkpoint",
+    "restore_partial",
     "save_checkpoint",
 ]

@@ -1,14 +1,18 @@
 """Checkpoint IO compatible with ``geneface_tpu/utils/checkpoint.py``.
 
 A checkpoint is one pickled dict of numpy leaves. The JAX package pickles its
-``OccupancyState`` NamedTuple and may pickle flax ``FrozenDict`` nodes; the
+``OccupancyState`` and ``TorsoOccupancyState`` NamedTuples and may pickle
+flax ``FrozenDict`` nodes; the
 restricted unpickler here maps both to the port's plain types without
 importing either framework, and refuses every other global except numpy's
 array reconstruction helpers (unpickling can otherwise run arbitrary code).
 
 :func:`save_checkpoint` writes plain dicts/tuples of numpy arrays in the JAX
 layout — ``{"state": {"params": {"params": ...}, "occ": (density_grid,
-occ_grid, mean_density)}}`` — so the JAX ``RADNeRFInfer`` reads it as well.
+occ_grid, mean_density)}}``, plus ``"torso_occ": (density_grid,
+mean_density)`` for the torso — so the JAX ``RADNeRFInfer`` reads it as well.
+:func:`restore_partial` is the non-strict load of one parameter tree into
+another (the torso task's warm start from a head checkpoint).
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ __all__ = [
     "get_all_checkpoints",
     "get_last_checkpoint",
     "save_step_checkpoint",
+    "restore_partial",
 ]
 
 _STEP_RE = re.compile(r"model_ckpt_steps_(\d+)\.ckpt$")
@@ -47,14 +52,15 @@ def _as_dict(mapping=None):
 
 class _CheckpointUnpickler(pickle.Unpickler):
     def find_class(self, module: str, name: str) -> Any:
-        from geneface_tpu_torch.models.radnerf.renderer import OccupancyState
+        from geneface_tpu_torch.models.radnerf import renderer
 
         if (module, name) in _NUMPY_GLOBALS or (
             module == "numpy.dtypes" and name.endswith("DType")
         ):
             return super().find_class(module, name)
-        if name == "OccupancyState" and module.endswith("models.radnerf.renderer"):
-            return OccupancyState
+        if name in ("OccupancyState", "TorsoOccupancyState") and module.endswith(
+                "models.radnerf.renderer"):
+            return getattr(renderer, name)
         if (module, name) == ("flax.core.frozen_dict", "FrozenDict"):
             return _as_dict
         raise pickle.UnpicklingError(
@@ -114,3 +120,27 @@ def save_step_checkpoint(work_dir: str, step: int, payload: dict, num_keep: int 
     for _, old in get_all_checkpoints(work_dir)[: -max(1, int(num_keep))]:
         os.remove(old)
     return path
+
+
+def restore_partial(target: dict, source: dict, silent: bool = False) -> dict:
+    """Copy the leaves of the nested dict ``source`` into a copy of
+    ``target`` where both have the key (the non-strict load). Leaves whose
+    shapes differ are skipped, with a message unless ``silent``; keys
+    missing from ``source`` keep ``target``'s leaf."""
+
+    def merge(dst: Any, src: Any, path: str) -> Any:
+        if isinstance(dst, dict):
+            if not isinstance(src, dict):
+                return dst
+            return {
+                k: merge(v, src[k], f"{path}.{k}" if path else k) if k in src else v
+                for k, v in dst.items()
+            }
+        arr = np.asarray(src)
+        if tuple(arr.shape) != tuple(np.shape(dst)):
+            if not silent:
+                print(f"| skip {path}: ckpt {arr.shape} != model {np.shape(dst)}")
+            return dst
+        return arr
+
+    return merge(target, source, "")

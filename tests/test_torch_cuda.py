@@ -14,8 +14,8 @@ of two summation orders (up to 655,360 terms land on one row, where a fixed
 atol would either fail or check nothing); a row gather is a copy — exact;
 the grid forward (corner sums in another order) rtol 1e-6, atol 1e-7; the
 grid backward's table gradients (atomic order) rtol 1e-5, atol 1e-6·max,
-its input gradients rtol 1e-4, atol 1e-6·max; a float32 frame on the card
-vs the CPU — 1e-5 absolute per pixel.
+its input gradients rtol 1e-4, atol 1e-6·max; a float32 frame (head, or
+head+torso) on the card vs the CPU — 1e-5 absolute per pixel.
 """
 
 import os
@@ -91,6 +91,8 @@ SITE_SHAPES = {
     "serve_composite": (1081344, 6, 135168),
     "train_composite": (655360, 6, 65536),
     "frame_scatter": (135168, 6, 262144),
+    "torso_group_0": (65536, 16, 324),
+    "torso_group_1": (65536, 112, 5466),
 }
 
 
@@ -201,6 +203,9 @@ def test_scatter_kernel_rejects_mixed_devices(card):
         (524288, 4096, 224, torch.float32),
         (131072, 5466, 112, torch.bfloat16),
         (70000, 324, 16, torch.float16),
+        (262144, 324, 16, torch.float32),  # the torso grid at a 512² frame
+        (262144, 5466, 112, torch.float32),
+        (16384, 5466, 112, torch.float32),  # the torso sweep
         (1000, 50, 6, torch.float32),  # W % 4 != 0: the scalar path
         (0, 10, 8, torch.float32),  # no indices
     ],
@@ -309,3 +314,25 @@ def test_frame_on_card_matches_cpu(card, tmp_path):
     want = cpu.render_frame(1)
     assert torch.equal(got["n_samples"].cpu(), want["n_samples"])
     torch.testing.assert_close(got["rgb_map"].cpu(), want["rgb_map"], rtol=0, atol=1e-5)
+
+
+def test_torso_frame_on_card_matches_cpu(card, tmp_path):
+    import chip_smoke
+    from geneface_tpu_torch.inference import RADNeRFInfer
+
+    cfg = chip_smoke.torso_cfg(chip_smoke.write_scene(str(tmp_path), hw=128, n_frames=4))
+    cpu = RADNeRFInfer(cfg, device="cpu", dtype=torch.float32)
+    gpu = RADNeRFInfer(cfg, device=card, dtype=torch.float32)
+    assert cpu.torso and gpu.torso
+    cpu.prepare()
+    gpu.prepare()
+    assert torch.equal(gpu.torso_mask.cpu(), cpu.torso_mask)
+    before = dict(LAUNCHES)
+    got = gpu.render_frame(1)
+    torch.cuda.synchronize()
+    assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 2
+    assert LAUNCHES["gather_rows"] == before["gather_rows"] + 4 + 2  # head + torso groups
+    want = cpu.render_frame(1)
+    torch.testing.assert_close(got["rgb_map"].cpu(), want["rgb_map"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(got["torso_alpha_map"].cpu(), want["torso_alpha_map"],
+                               rtol=0, atol=1e-5)

@@ -152,6 +152,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rows, upd, err):
         (1081344, 6, 135168, "runs"),  # serving composite, ray-major rows
         (655360, 6, 65536, "runs"),  # training composite
         (135168, 6, 262144, "runs"),  # frame scatter, unique rows
+        (65536, 16, 324, "smem"),  # torso grid backward, coarse group
+        (65536, 112, 5466, "vec"),  # torso grid backward, fine group: no sort
     ],
 )
 def test_variant_of_the_main_path_shapes(M, W, n_rows, want):

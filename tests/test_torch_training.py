@@ -296,6 +296,6 @@ def test_run_cli_trains_and_checkpoint_renders(synth_dir, tmp_path):
     with pytest.raises(NotImplementedError):
         main(["--config", str(path), "--exp_name", work, "--device", "cpu"])
     with pytest.raises(NotImplementedError):
-        resolve_task("geneface_tpu.tasks.radnerf_torso.RADNeRFTorsoTask")
+        resolve_task("geneface_tpu.tasks.lm3d_nerf.Lm3dNeRFTask")
     with pytest.raises(NotImplementedError):
         RADNeRFTask(dict(cfg, finetune_lips=True), device="cpu").build()
