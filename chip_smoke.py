@@ -2,10 +2,11 @@
 
     python3 chip_smoke.py
 
-Drives the port's four paths at the full width of
+Drives the port's five paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
-on a 512² synthetic 8-frame dataset, with random weights from a seeded
-``torch.Generator``:
+on a 512² synthetic 8-frame dataset, and of HuBERT-large, ``VAEModel(204)``
+and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
+with random weights from a seeded ``torch.Generator``:
 
 - head serving: the occupancy ball of ``bench.py`` (radius 0.6) and
   ``RADNeRFInfer.render_frames`` on ``cuda``, the frame checked against the
@@ -22,7 +23,14 @@ on a 512² synthetic 8-frame dataset, with random weights from a seeded
   rays on the head checkpoint (``head_model_dir``; torso sweeps at steps 0
   and 16), every loss finite, a non-zero gradient in both torso groups,
   every head parameter bit-identical afterwards, and one step checked
-  against the CPU plain path on 4,096 rays.
+  against the CPU plain path on 4,096 rays;
+- speech to video (``audio_serve``): a seeded 8 s voiced wav through
+  ``PostnetInfer.infer`` (HuBERT-large, the VAE's prior and flow, the
+  post-net → the lm3d ``.npy``), then 4 head+torso frames of the torso
+  checkpoint through ``RADNeRFInfer.render_frames`` driven by that lm3d
+  with the LLE projection on; HuBERT, VAE, post-net, the LLE'd conditions
+  and a frame held against the CPU plain path on the card's inputs; each
+  stage timed, and the LLE alone against a 6,000-row database.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
@@ -42,13 +50,18 @@ and the idle share of a frame and of a step of each path
 (``torch.profiler``; the tables go to ``smoke_out/``), the losses, one line
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call), and one ``{"kernels":
-[...]}`` JSON line listing every site of the four paths.
+[...]}`` JSON line listing every site of the five paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
-the profiler, ``library_ms`` and each variant's the median of three windows;
-``ms_events`` adds the host's launch gaps. The profiler now and then records
-no device activity in a window: a measurement takes up to five windows, and
-then falls back to CUDA events behind a queued device sleep (counted on the
-``profiler:`` line); a phase profile it cannot get is "not measured".
+the profiler (kernels, copies and fills only), ``library_ms``, each
+variant's and each gather's the median of three windows; ``ms_events`` adds
+the host's launch gaps. The profiler keeps no device record of a window's
+first five launches, so each window opens with uncounted launches of its
+own; it now and then records no device activity in a window, or loses
+more launches: a measurement takes up to five windows, estimates from
+windows that lost launches, and falls back to CUDA events behind a queued
+device sleep only when no window recorded anything (counted on the
+``profiler:`` line, with the rows that lost launches); a phase profile it
+cannot get is "not measured".
 The last line is ``{"ok": true, "device": {...}}``. Any failure exits
 non-zero; without a card it exits 1 and prints no result.
 """
@@ -70,6 +83,15 @@ RENDER_FRAMES = 4
 TRAIN_RAYS = 65536
 TRAIN_STEPS = 20
 CHECK_RAYS = 4096
+#: the audio_serve path: an 8 s voiced wav at 16 kHz; the LLE percent of
+#: its render (the reference's own --infer value is not in the repo: 1.0);
+#: a user's landmark database (a ~4-minute video at 25 fps) for the LLE
+#: timed alone
+AUDIO_SECONDS = 8.0
+LLE_PERCENT = 1.0
+LLE_DB_ROWS = 6000
+LLE_K = 10
+POSTNET_YAML = "egs/datasets/videos/May/lm3d_postnet_sync.yaml"
 #: H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s and float32
 #: (non-tensor-core) operations/s
 PEAK_BYTES_S = 3.35e12
@@ -77,7 +99,9 @@ PEAK_F32_OPS_S = 67e12
 #: profiler windows per measurement before it gives up (see :func:`profiled`),
 #: and the run's count of windows, misses and times taken by CUDA events
 PROFILER_TRIES = 5
-PROFILER = {"windows": 0, "windows_without_device_time": 0, "timed_by_events": 0}
+PROFILER = {"windows": 0, "windows_without_device_time": 0, "windows_missing_launches": 0,
+            "estimated_from_partial_windows": 0, "timed_by_events": 0,
+            "short_rows": {}, "opening_records": {}}
 
 
 def production_cfg(data_dir: str, work_dir: str) -> dict:
@@ -209,17 +233,37 @@ def events_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _device_events(prof):
-    """Kernels, copies and fills on the device: not the ranges that the
-    profiler also places on the device timeline (the ``gf::`` stages, the
-    optimizer's ``Optimizer.step#...``), which would count their kernels
-    twice."""
+#: torch 2.11's profiler on the card keeps no device record of the first
+#: five launches of most windows (the launches it misses are the window's
+#: first five by host order; seen in every kind of window): each window
+#: opens with this many ``torch.cuda._sleep`` launches, left out of its rows
+PAD_LAUNCHES = 8
+
+
+def _open_window() -> None:
+    import torch
+
+    for _ in range(PAD_LAUNCHES):
+        torch.cuda._sleep(1)
+
+
+def _device_events(prof) -> list:
+    """``(name, device µs, count)`` of each kernel, copy and fill that the
+    window recorded, summed by name: not the ranges that the profiler also
+    places on the device timeline (the ``gf::`` stages, the optimizer's
+    ``Optimizer.step#...``), which would count their kernels twice, nor the
+    window's opening ``spin_kernel`` launches."""
     from torch.autograd import DeviceType
 
-    return [
-        e for e in prof.key_averages()
-        if e.device_type != DeviceType.CPU and not e.key.startswith(("gf::", "Optimizer."))
-    ]
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if (e.device_type() == DeviceType.CPU or name.startswith(("gf::", "Optimizer."))
+                or "spin_kernel" in name):
+            continue
+        us, n = rows.get(name, (0.0, 0))
+        rows[name] = (us + e.duration_ns() / 1e3, n + 1)
+    return [(name, us, n) for name, (us, n) in rows.items()]
 
 
 def profiled(run, activities):
@@ -233,10 +277,11 @@ def profiled(run, activities):
 
     for _ in range(PROFILER_TRIES):
         with profile(activities=activities) as prof:
+            _open_window()
             run()
             torch.cuda.synchronize()
         PROFILER["windows"] += 1
-        if any(e.self_device_time_total > 0 for e in _device_events(prof)):
+        if any(us > 0 for _, us, _ in _device_events(prof)):
             return prof
         PROFILER["windows_without_device_time"] += 1
     return None
@@ -262,24 +307,59 @@ def queued_events_ms(fn, iters: int = 20) -> float:
 
 def device_ms(fn, iters: int = 20) -> float:
     """Mean device time of ``fn()`` (the sum of the kernels, copies and
-    fills it runs, from ``torch.profiler``) over ``iters`` runs; where the
-    profiler misses ``PROFILER_TRIES`` windows in a row, the time of
-    :func:`queued_events_ms` (counted in ``PROFILER["timed_by_events"]``)."""
+    fills it runs, from ``torch.profiler``) over ``iters`` runs.
+
+    Each window opens with :func:`_open_window`'s launches, which the
+    profiler may drop unseen (``PROFILER["opening_records"]`` counts the
+    windows by how many of them it recorded). A window counts whole when each kernel, copy
+    and fill came a multiple of ``iters`` times. When none of
+    ``PROFILER_TRIES`` windows is whole,
+    each one's mean over the launches the windows did record is multiplied
+    by its launches per call (the most any window recorded, rounded up to a
+    multiple of ``iters``), and ``PROFILER["short_rows"]`` counts, by name,
+    the windows that lost launches and the launches lost. Only when no
+    window recorded device activity at all, the time of
+    :func:`queued_events_ms` (device time plus the device's gaps).
+    ``PROFILER`` counts each case."""
+    import collections
+    import math
+
     import torch
-    from torch.profiler import ProfilerActivity
+    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-
-    def run():
-        for _ in range(iters):
-            fn()
-
-    prof = profiled(run, [ProfilerActivity.CUDA])
-    if prof is None:
+    time_us, launches, most = (collections.Counter() for _ in range(3))
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _open_window()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        PROFILER["windows"] += 1
+        opened = str(sum("spin_kernel" in e.name() for e in prof.profiler.kineto_results.events()))
+        PROFILER["opening_records"][opened] = PROFILER["opening_records"].get(opened, 0) + 1
+        rows = _device_events(prof)
+        if not any(us > 0 for _, us, _ in rows):
+            PROFILER["windows_without_device_time"] += 1
+            continue
+        short = [(name, n) for name, _, n in rows if n % iters]
+        if not short:
+            return sum(us for _, us, _ in rows) / 1e3 / iters
+        PROFILER["windows_missing_launches"] += 1
+        for name, n in short:
+            lost = PROFILER["short_rows"].setdefault(name[:80], [0, 0])
+            lost[0] += 1
+            lost[1] += -n % iters
+        for name, us, n in rows:
+            time_us[name] += us
+            launches[name] += n
+            most[name] = max(most[name], n)
+    if not launches:
         PROFILER["timed_by_events"] += 1
         return queued_events_ms(fn, iters)
-    return sum(e.self_device_time_total for e in _device_events(prof)) / 1e3 / iters
+    PROFILER["estimated_from_partial_windows"] += 1
+    return sum(time_us[k] / launches[k] * math.ceil(most[k] / iters) for k in launches) / 1e3
 
 
 def _wrapper_patches():
@@ -436,7 +516,7 @@ def measure_gather(table, idx) -> dict:
         "M": M, "W": W, "n_rows": R, "kept_rows": int(keep.sum()), "max_abs_err": err,
         "columns_per_thread": ga.pick_gather_path(
             W, table.element_size(), table.data_ptr(), got.data_ptr()),
-        "ms": device_ms(lambda: ga.launch_gather_rows(table, idx)),
+        "ms": median_ms(lambda: ga.launch_gather_rows(table, idx)),
         "plain_ms": device_ms(lambda: ga.gather_rows_plain(table, idx)),
         "library_ms": median_ms(library),
         "ms_events": events_ms(lambda: ga.launch_gather_rows(table, idx)),
@@ -562,7 +642,8 @@ def kernel_entry(name: str, sites: list, launches: dict, ptxas: dict) -> dict:
     }
 
 
-def profile_frame(infer, out_dir: str, steady_ms: float, path: str = "serve") -> dict:
+def profile_frame(infer, out_dir: str, steady_ms: float, path: str = "serve",
+                  conds=None) -> dict:
     """Device time of one steady frame by kernel, and the device-timeline
     span of each renderer stage (``gf::*`` ranges: its kernels plus the gaps
     between them), from ``torch.profiler``; the table goes to
@@ -571,9 +652,9 @@ def profile_frame(infer, out_dir: str, steady_ms: float, path: str = "serve") ->
     import torch
     from torch.profiler import ProfilerActivity
 
-    infer.render_frame(0)
+    infer.render_frame(0, conds)
     torch.cuda.synchronize()
-    prof = profiled(lambda: infer.render_frame(0),
+    prof = profiled(lambda: infer.render_frame(0, conds),
                     [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     kernels, stages, busy = kernel_table(prof)
     with open(os.path.join(out_dir, f"{path}_frame_profile.txt"), "w") as f:
@@ -594,10 +675,8 @@ def kernel_table(prof) -> tuple:
     :func:`profiled` could not get gives ``([], {}, None)``: not measured."""
     if prof is None:
         return [], {}, None
-    kernels = sorted(
-        ((e.key, e.self_device_time_total / 1e3, e.count) for e in _device_events(prof)),
-        key=lambda k: -k[1],
-    )
+    kernels = sorted(((name, us / 1e3, n) for name, us, n in _device_events(prof)),
+                     key=lambda k: -k[1])
     stages = {e.key: e.device_time_total / 1e3
               for e in prof.key_averages() if e.key.startswith("gf::")}
     return kernels, stages, sum(k[1] for k in kernels)
@@ -708,6 +787,287 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
     record = {"ms_per_frame": wall / RENDER_FRAMES * 1e3, "steady_ms": times,
               "ray_capacity": C, "sample_capacity": Mc, "profile": prof,
               "frame_vs_cpu_max_abs": float(diff.max())}
+    return record, launches, sites
+
+
+def write_voiced_wav(path: str, seconds: float, seed: int = 0) -> None:
+    """A 16 kHz mono int16 wav: five harmonics on an f0 contour between 120
+    and 220 Hz, plus noise, so that ``extract_f0`` finds voiced frames."""
+    import numpy as np
+    from scipy.io import wavfile
+
+    rng = np.random.RandomState(seed)
+    t = np.arange(int(16000 * seconds)) / 16000
+    f0 = 170 + 50 * np.sin(2 * np.pi * 0.7 * t)
+    phase = 2 * np.pi * np.cumsum(f0) / 16000
+    x = sum(np.sin(h * phase) / h for h in range(1, 6)) * 0.3 + 0.02 * rng.randn(len(t))
+    wavfile.write(path, 16000, (x * 0.8 * 32767 / np.abs(x).max()).astype(np.int16))
+
+
+def write_audio_models(root: str, seed: int = 0) -> dict:
+    """The wav and the stage-A checkpoints in the JAX layout, as a user's
+    would be: HuBERT-large (``{"config", "params"}`` at the path
+    ``GF_HUBERT_CKPT`` names), ``VAEModel(204)`` and ``CNNPostNet(204)`` in
+    ``model_ckpt_steps_0.ckpt`` of their work dirs; every weight from a
+    seeded generator (the flow's output convs too, which flax initializes
+    to zero)."""
+    import dataclasses
+
+    import torch
+
+    from geneface_tpu_torch.convert import flax_variables
+    from geneface_tpu_torch.datagen.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
+    from geneface_tpu_torch.models.audio2motion.vae import VAEModel
+    from geneface_tpu_torch.models.layers import init_weights_
+    from geneface_tpu_torch.models.postnet.models import CNNPostNet
+    from geneface_tpu_torch.utils.checkpoint import save_checkpoint
+
+    os.makedirs(root, exist_ok=True)
+    gen = torch.Generator().manual_seed(seed)
+    files = {"wav": os.path.join(root, "speech.wav"), "hubert": os.path.join(root, "hubert.pkl"),
+             "vae": os.path.join(root, "lm3d_vae_sync"), "postnet": os.path.join(root, "postnet")}
+    write_voiced_wav(files["wav"], AUDIO_SECONDS, seed)
+    hcfg = Wav2Vec2Config(vocab_size=0)  # HuBERT-large
+    hubert = init_weights_(Wav2Vec2CTC(hcfg), gen)
+    save_checkpoint(files["hubert"], {"config": dataclasses.asdict(hcfg),
+                                      "params": flax_variables(hubert)})
+    save_checkpoint(os.path.join(files["vae"], "model_ckpt_steps_0.ckpt"),
+                    {"state": {"params": flax_variables(init_weights_(VAEModel(204), gen))}})
+    save_checkpoint(os.path.join(files["postnet"], "model_ckpt_steps_0.ckpt"),
+                    {"state": {"gen_params": flax_variables(init_weights_(CNNPostNet(204), gen))}})
+    return files
+
+
+def as_float64(x):
+    """A tensor (on any device) or an array → a float64 numpy array."""
+    import numpy as np
+
+    return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
+
+
+def held(name: str, got, ref, bound: float, relative: bool = True) -> float:
+    """Max abs difference of card ``got`` against CPU ``ref``, held to
+    ``bound`` (times ``max |ref|`` when ``relative``) → the difference."""
+    import numpy as np
+
+    got, ref = as_float64(got), as_float64(ref)
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        raise AssertionError(f"{name}: card {got.shape} vs CPU {ref.shape}, or not finite")
+    err = float(np.abs(got - ref).max())
+    limit = bound * float(np.abs(ref).max()) if relative else bound
+    print(f"audio_serve: {name} card vs CPU max abs {err:.3e} (bound {limit:.3e})")
+    if not err <= limit:
+        raise AssertionError(f"{name}: card vs CPU {err} > {limit}")
+    return err
+
+
+def audio_serve_phase(cfg, out_dir: str, path: str = "audio_serve") -> tuple:
+    """Speech to video: an 8 s wav through stage A (``PostnetInfer.infer``:
+    HuBERT-large, the VAE's prior and flow, the post-net → lm3d ``.npy``)
+    and stage B (``RADNeRFInfer.render_frames`` of the torso checkpoint,
+    driven by the predicted lm3d with the LLE projection on); every stage
+    held against the port's plain CPU path on the card's inputs; the LLE
+    timed alone at a user's database size; → (record, launches, sites)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from geneface_tpu_torch import set_full_fp32
+    from geneface_tpu_torch.config.config import load_config
+    from geneface_tpu_torch.inference import PostnetInfer, RADNeRFInfer
+    from geneface_tpu_torch.inference.audio2motion_infer import prior_noise, truncate16
+    from geneface_tpu_torch.inference.landmark_postprocess import lle_project_lm3d
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.models.postnet.lle import compute_lle_projection
+    from geneface_tpu_torch.utils.audio import (
+        extract_f0,
+        extract_hubert,
+        load_hubert,
+        load_wav16k,
+    )
+
+    root = os.path.join(os.path.dirname(cfg["work_dir"]), "audio")
+    t0 = time.perf_counter()
+    files = write_audio_models(root)
+    print(f"{path}: checkpoints written in {time.perf_counter() - t0:.1f} s "
+          f"(HuBERT-large {os.path.getsize(files['hubert']) / 2**20:.0f} MiB)")
+    os.environ["GF_HUBERT_CKPT"] = files["hubert"]
+    npy = os.path.join(root, "pred_lm3d.npy")
+    pcfg = load_config(os.path.join(REPO, POSTNET_YAML), overrides={
+        "audio2motion_work_dir": files["vae"], "postnet_work_dir": files["postnet"],
+        "infer_audio_source_name": files["wav"], "infer_out_npy_name": npy})
+    rcfg = dict(cfg, infer_lm3d_lle_percent=LLE_PERCENT)
+    stage_a = PostnetInfer(pcfg)  # cuda
+    render = RADNeRFInfer(rcfg)  # cuda, bf16 head MLPs
+    seed = int(pcfg.get("seed", 0))
+
+    def speech_to_frames(n_frames):
+        lm = stage_a.infer(wav_path=files["wav"], out_npy=npy, seed=seed)
+        return lm, render.render_frames(n_frames, idexp_lm3d=lm)
+
+    speech_to_frames(1)  # warm-up (first launches, allocator, cuDNN)
+    torch.cuda.synchronize()
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    t1 = time.perf_counter()
+    lm3d = stage_a.infer(wav_path=files["wav"], out_npy=npy, seed=seed)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    frames = render.render_frames(RENDER_FRAMES, idexp_lm3d=lm3d)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    launches = dict(LAUNCHES)
+
+    n_samples = int(AUDIO_SECONDS * 16000)
+    wav = load_wav16k(files["wav"])
+    n_hubert = (n_samples - 400) // 320 + 1  # the conv stack's frames
+    n_rows = truncate16(min(2 * n_hubert, 1 + n_samples // 160))
+    if len(wav) != n_samples or lm3d.shape != (n_rows // 2, 68, 3) or not np.isfinite(lm3d).all():
+        raise AssertionError(f"{path}: {len(wav)} samples → lm3d {lm3d.shape}, "
+                             f"expected {(n_rows // 2, 68, 3)}, finite")
+    if np.load(npy).shape != (1,) + lm3d.shape:
+        raise AssertionError(f"{path}: {npy} holds {np.load(npy).shape}")
+    if frames.shape != (RENDER_FRAMES, HW, HW, 3) or frames.dtype != np.uint8:
+        raise AssertionError(f"{path}: frames {frames.shape} {frames.dtype}")
+    per_frame = 2 if render.ray_capacity else 1
+    want = {"scatter_add_rows": per_frame * RENDER_FRAMES,
+            "gather_rows": sum(n_grid_groups(render.model)) * RENDER_FRAMES}
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+    fps = len(lm3d) / AUDIO_SECONDS
+    print(f"{path}: {AUDIO_SECONDS} s of audio ({n_samples} samples) → {n_hubert} HuBERT frames "
+          f"→ {n_rows} rows → {len(lm3d)} landmark frames ({fps:.2f} per second of audio); "
+          f"stage A {(t2 - t1) * 1e3:.3f} ms wall (HuBERT checkpoint read included), "
+          f"ms/frame {(t3 - t2) / RENDER_FRAMES * 1e3:.3f} (render_frames of {RENDER_FRAMES}, "
+          f"LLE and per-video set-up included)")
+
+    # the stages one by one: host clock for the host ops, CUDA events for
+    # the device ones (each a mean over back-to-back runs after a warm-up)
+    def host_ms(fn, n=5):
+        out = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - ts) * 1e3)
+        return sorted(out)[n // 2]
+
+    stages = {"wav_read_ms": host_ms(lambda: load_wav16k(files["wav"])),
+              "f0_ms": host_ms(lambda: extract_f0(wav), n=3),
+              "hubert_load_ms": host_ms(lambda: load_hubert(files["hubert"], "cuda"), n=1)}
+    hmodel = load_hubert(files["hubert"], "cuda")
+    hidden = extract_hubert(wav, model=hmodel)
+    hubert, f0 = hidden[:n_rows], extract_f0(wav)[:n_rows]
+    noise = prior_noise(stage_a.vae, n_rows // 2, seed)
+    raw = stage_a.sample(hubert, f0, noise)
+    conds = render.conds_from_lm3d(lm3d)
+    lm_norm = ((lm3d - np.asarray(render.dataset.idexp_lm3d_mean))
+               / np.asarray(render.dataset.idexp_lm3d_std))
+    stages.update(
+        hubert_ms=events_ms(lambda: extract_hubert(wav, model=hmodel), iters=5),
+        vae_ms=events_ms(lambda: stage_a.sample(hubert, f0, noise)),
+        postnet_ms=events_ms(lambda: stage_a.refine(raw, f0)),
+        conds_from_lm3d_ms=host_ms(lambda: render.conds_from_lm3d(lm3d)),
+        lle_on_path_ms=host_ms(lambda: lle_project_lm3d(
+            lm_norm, render.dataset.conds[:, 0].reshape(-1, 68, 3), LLE_PERCENT,
+            device=render.device)),
+    )
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        render.render_frame(0, conds)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - ts) * 1e3)
+    steady = sorted(times)[2]
+
+    # the LLE alone at a user's database size (seeded rows, the predicted
+    # landmarks as queries)
+    gen = torch.Generator().manual_seed(7)
+    db = torch.randn(LLE_DB_ROWS, 204, generator=gen)
+    q = torch.as_tensor(conds[:, 0], dtype=torch.float32)
+    db_c, q_c = db.cuda(), q.cuda()
+    stages["lle_6000_ms"] = events_ms(lambda: compute_lle_projection(q_c, db_c, LLE_K))
+    print(f"{path}: stage ms " + json.dumps({k: round(v, 3) for k, v in stages.items()})
+          + f"; steady render_frame median {steady:.3f} ms")
+
+    # card vs the port's plain CPU path, each stage on the card's inputs.
+    # float32 everywhere (TF32 off): HuBERT's 24 layers, the VAE's and the
+    # post-net's convolutions run other algorithms and sum orders on the
+    # card (cuDNN, cuBLAS), ~1e-6 of the largest magnitude, so they are held
+    # to 1e-5 of it; the LLE solves in float64 (1e-5 absolute on normalized
+    # landmarks); the frame to the serving paths' bounds
+    cpu_a = PostnetInfer(pcfg, device="cpu")
+    refs = {"hubert": extract_hubert(wav, model=load_hubert(files["hubert"], "cpu")),
+            "vae": cpu_a.sample(hubert, f0, noise), "postnet": cpu_a.refine(raw.cpu(), f0)}
+    lm_card = stage_a.refine(raw, f0)
+    errs = {"hubert": held("HuBERT hidden states", hidden, refs["hubert"], 1e-5),
+            "vae": held("VAE prior sample", raw, refs["vae"], 1e-5),
+            "postnet": held("post-net lm3d", lm_card, refs["postnet"], 1e-5)}
+    # the same three stages with TF32 on (cuBLAS and cuDNN round their
+    # operands to 10-bit mantissas): a reading, relative to max |ref|, that
+    # shows whether the 1e-5 bound tells TF32 from float32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = {"hubert": extract_hubert(wav, model=hmodel),
+                "vae": stage_a.sample(hubert, f0, noise), "postnet": stage_a.refine(raw, f0)}
+    finally:
+        set_full_fp32()
+    tf32 = {k: float(np.abs(as_float64(v) - as_float64(refs[k])).max()
+                     / np.abs(as_float64(refs[k])).max()) for k, v in tf32.items()}
+    print(f"{path}: with TF32 on, card vs CPU max abs / max |ref| "
+          + json.dumps({k: f"{v:.3e}" for k, v in tf32.items()}) + " (bound 1e-5)")
+    cpu_r = RADNeRFInfer(rcfg, device="cpu")
+    errs["conds"] = held("LLE'd condition windows", conds, cpu_r.conds_from_lm3d(lm3d), 1e-5,
+                         relative=False)
+    fused_c, _ = compute_lle_projection(q_c, db_c, LLE_K)
+    fused, _ = compute_lle_projection(q, db, LLE_K)
+    errs["lle_6000"] = held(f"LLE at {LLE_DB_ROWS} rows", fused_c, fused, 1e-5, relative=False)
+    cpu_r.prepare()
+    ref = cpu_r.render_frame(0, conds)["rgb_map"]
+    gpu = render.render_frame(0, conds)["rgb_map"].cpu()
+    diff = (gpu - ref).abs()
+    print(f"{path}: frame 0 vs CPU plain path: max abs {float(diff.max()):.3e}, "
+          f"mean abs {float(diff.mean()):.3e}")
+    if float(diff.max()) > 1e-3 or float(diff.mean()) > 1e-6:
+        raise AssertionError(f"{path}: GPU frame disagrees with the CPU plain path")
+
+    # stage A on the device timeline: gf::hubert / gf::vae / gf::postnet
+    def stage_a_device():
+        extract_hubert(wav, model=hmodel)
+        stage_a.refine(stage_a.sample(hubert, f0, noise), f0)
+
+    wall_a = host_ms(stage_a_device, n=3)
+    kernels, spans, busy = kernel_table(profiled(stage_a_device,
+                                                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    with open(os.path.join(out_dir, f"{path}_stage_a_profile.txt"), "w") as f:
+        f.write(f"stage A (HuBERT forward, VAE, post-net) wall {wall_a:.3f} ms, "
+                f"device busy {fmt_ms(busy, ' ms')}\n")
+        for name, ms in sorted(spans.items(), key=lambda x: -x[1]):
+            f.write(f"stage {name:24s} {ms:9.3f} ms\n")
+        for name, ms, n in kernels:
+            f.write(f"{ms:9.3f} ms {n:5d}x {name}\n")
+    idle_a = None if busy is None else max(0.0, 1.0 - busy / wall_a)
+    print(f"{path}: stage A device time {fmt_ms(busy, ' ms')} of {wall_a:.3f} ms wall (idle "
+          f"share {fmt_ms(idle_a)}); spans ms "
+          + json.dumps({k: round(v, 3) for k, v in spans.items()}))
+    calls = capture_calls(lambda: render.render_frame(0, conds))
+    sites = name_sites(calls, grid_names(render.model), path)
+    prof = profile_frame(render, out_dir, steady, path, conds)
+    print(f"{path}: frame device time {fmt_ms(prof['device_busy_ms'], ' ms')} of "
+          f"{prof['steady_ms']:.3f} ms wall (idle share {fmt_ms(prof['idle_share'])})")
+    record = {"audio_seconds": AUDIO_SECONDS, "hubert_frames": n_hubert, "landmark_frames":
+              len(lm3d), "landmark_frames_per_audio_second": fps,
+              "stage_a_wall_ms": (t2 - t1) * 1e3, "ms_per_frame": (t3 - t2) / RENDER_FRAMES * 1e3,
+              "steady_ms": times, "stages_ms": stages, "lle_percent": LLE_PERCENT,
+              "lle_database_rows_on_path": len(render.dataset.conds),
+              "card_vs_cpu_max_abs": errs, "tf32_card_vs_cpu_relative": tf32,
+              "frame_vs_cpu_max_abs": float(diff.max()),
+              "stage_a_profile": {"wall_ms": wall_a, "device_busy_ms": busy,
+                                  "idle_share": idle_a, "spans_ms": spans,
+                                  "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]},
+              "frame_profile": prof}
     return record, launches, sites
 
 
@@ -1032,7 +1392,8 @@ def main() -> int:
         cfg = write_scene(root, HW, N_FRAMES)
         phases = [("serve", serve_phase, cfg), ("train", train_phase, cfg),
                   ("torso_serve", serve_phase, torso_cfg(cfg)),
-                  ("torso_train", train_phase, torso_cfg(cfg))]
+                  ("torso_train", train_phase, torso_cfg(cfg)),
+                  ("audio_serve", audio_serve_phase, torso_cfg(cfg))]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()
@@ -1045,8 +1406,14 @@ def main() -> int:
         sites = measure_sites(all_sites, per_call)
         print(f"phases s: {json.dumps(took)}, kernel sites {time.time() - t3:.1f} s")
         print(f"profiler: {PROFILER['windows']} windows, "
-              f"{PROFILER['windows_without_device_time']} without device time; "
-              f"{PROFILER['timed_by_events']} kernel-site times taken by CUDA events instead")
+              f"{PROFILER['windows_without_device_time']} without device time, "
+              f"{PROFILER['windows_missing_launches']} missing launches; "
+              f"{PROFILER['estimated_from_partial_windows']} times estimated from partial "
+              f"windows, {PROFILER['timed_by_events']} taken by CUDA events instead; windows by "
+              f"opening launches recorded (of {PAD_LAUNCHES}) "
+              + json.dumps(PROFILER["opening_records"]) + "; rows "
+              "that lost launches (windows, launches) " + json.dumps(dict(sorted(
+                  PROFILER["short_rows"].items(), key=lambda r: -r[1][0])[:5])))
         kernels_line = {"kernels": [kernel_entry("scatter_add_rows", sites, launches, ptxas),
                                     kernel_entry("gather_rows", sites, launches, ptxas)]}
         record.update(kernels_line, profiler=PROFILER)

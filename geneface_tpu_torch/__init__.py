@@ -1,7 +1,9 @@
-"""PyTorch + CUDA port of the geneface_tpu RAD-NeRF serving path.
+"""PyTorch + CUDA port of geneface_tpu: the RAD-NeRF head and torso
+(serving and training) and the speech-to-landmarks serving path (HuBERT,
+the Audio2Motion VAE, the post-net, the LLE projection).
 
 The JAX package ``geneface_tpu`` stays the reference; this package mirrors
-its layout (``ops/``, ``models/radnerf/``, ``inference/``, ``data/``,
+its layout (``ops/``, ``models/``, ``inference/``, ``data/``, ``datagen/``,
 ``utils/``, ``config/``) and loads the same pickled checkpoints. It imports
 ``torch`` and ``numpy`` only — never ``jax``/``flax`` and nothing of
 ``geneface_tpu`` — and keeps its own copies of the framework-free helpers

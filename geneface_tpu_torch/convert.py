@@ -15,6 +15,20 @@ The mapping, module by module:
 - the torso's biased ``head_aware_mlps_<i>/{kernel,bias}`` →
   ``head_aware_mlps.<i>.{weight,bias}``;
 - ``individual_embeddings`` and ``torso_individual_codes`` as they are.
+
+The audio-side models (HuBERT, the Audio2Motion VAE, the post-net) name
+their submodules as flax does, so :func:`load_flax_variables` and
+:func:`flax_variables` map them by name and module type:
+
+- ``Conv1d``: kernel ``[K, Cin/groups, Cout]`` ↔ weight ``[Cout, Cin/groups, K]``;
+- ``ConvTranspose1d``: flax's ``ConvTranspose`` (``transpose_kernel=False``)
+  applies its kernel unflipped to the dilated input, torch's the flipped
+  one, so kernel ``[K, Cin, Cout]`` ↔ weight ``[Cin, Cout, K]`` reversed
+  along ``K`` (the ``SAME`` padding at kernel = stride then aligns both);
+- ``Linear``: kernel ``[in, out]`` ↔ weight ``[out, in]``;
+- ``LayerNorm``/``GroupNorm``: ``scale`` ↔ ``weight``; ``BatchNorm1d`` also
+  ``batch_stats`` ``mean``/``var`` ↔ ``running_mean``/``running_var``;
+- ``Embedding``: ``embedding`` ↔ ``weight``.
 """
 
 from __future__ import annotations
@@ -22,8 +36,16 @@ from __future__ import annotations
 import re
 
 import numpy as np
+import torch
+from torch import nn
 
-__all__ = ["flax_path", "flax_to_state_dict", "state_dict_to_flax"]
+__all__ = [
+    "flax_path",
+    "flax_to_state_dict",
+    "state_dict_to_flax",
+    "load_flax_variables",
+    "flax_variables",
+]
 
 _AUDIO_DENSE = {
     ("cond_prenet", "Dense_0"): "fc1",
@@ -118,3 +140,91 @@ def state_dict_to_flax(state_dict: dict) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.array(v, order="C")
     return {"params": tree}
+
+
+def _subtree(tree: dict, path: list):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def _module_leaves(model: nn.Module):
+    """``(flax path, module)`` of every module holding parameters."""
+    kinds = (nn.Conv1d, nn.ConvTranspose1d, nn.Linear, nn.LayerNorm, nn.GroupNorm,
+             nn.BatchNorm1d, nn.Embedding)
+    for name, m in model.named_modules():
+        if isinstance(m, kinds):
+            yield name.split("."), m
+
+
+def load_flax_variables(model: nn.Module, variables: dict, assign: bool = False) -> nn.Module:
+    """Copy a flax variables tree (``{"params": ..., "batch_stats": ...}``,
+    numpy or array leaves) into ``model`` in place. Strict both ways: every
+    tensor of the model is set and every leaf of the tree is used.
+    ``assign`` takes the converted arrays as the model's tensors instead of
+    copying into them (a model built on the ``meta`` device)."""
+    params = variables.get("params", variables)
+    stats = variables.get("batch_stats", {})
+    sd, used = {}, 0
+    for path, m in _module_leaves(model):
+        # torch, not numpy, makes the transposed copies (several times faster
+        # on large kernels)
+        p = {k: torch.as_tensor(np.asarray(v)) for k, v in _subtree(params, path).items()}
+        pre = ".".join(path)
+        if isinstance(m, nn.ConvTranspose1d):
+            sd[f"{pre}.weight"] = p["kernel"].flip(0).permute(1, 2, 0)
+        elif isinstance(m, nn.Conv1d):
+            sd[f"{pre}.weight"] = p["kernel"].permute(2, 1, 0)
+        elif isinstance(m, nn.Linear):
+            sd[f"{pre}.weight"] = p["kernel"].T
+        elif isinstance(m, nn.Embedding):
+            sd[f"{pre}.weight"] = p["embedding"]
+        else:  # the norms
+            sd[f"{pre}.weight"] = p["scale"]
+        if "bias" in p:
+            sd[f"{pre}.bias"] = p["bias"]
+        used += len(p)
+        if isinstance(m, nn.BatchNorm1d):
+            s = _subtree(stats, path)
+            sd[f"{pre}.running_mean"] = torch.as_tensor(np.asarray(s["mean"]))
+            sd[f"{pre}.running_var"] = torch.as_tensor(np.asarray(s["var"]))
+            sd[f"{pre}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+            used += 2
+    n_leaves = len(_flatten(params)) + len(_flatten(stats))
+    if used != n_leaves:
+        raise KeyError(f"{n_leaves - used} leaves of the flax tree have no module in "
+                       f"{type(model).__name__}")
+    model.load_state_dict({k: v.contiguous() for k, v in sd.items()}, assign=assign)
+    return model
+
+
+def flax_variables(model: nn.Module) -> dict:
+    """Inverse of :func:`load_flax_variables` → ``{"params": tree}`` (plus
+    ``"batch_stats"`` where the model has BatchNorm), numpy leaves."""
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, leaf, t):
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.array(t.detach().cpu().numpy() if torch.is_tensor(t) else t, order="C")
+
+    for path, m in _module_leaves(model):
+        w = m.weight.detach().cpu().numpy()
+        if isinstance(m, nn.ConvTranspose1d):
+            put(params, path, "kernel", w.transpose(2, 0, 1)[::-1])
+        elif isinstance(m, nn.Conv1d):
+            put(params, path, "kernel", w.transpose(2, 1, 0))
+        elif isinstance(m, nn.Linear):
+            put(params, path, "kernel", w.T)
+        elif isinstance(m, nn.Embedding):
+            put(params, path, "embedding", w)
+        else:
+            put(params, path, "scale", w)
+        if getattr(m, "bias", None) is not None:
+            put(params, path, "bias", m.bias)
+        if isinstance(m, nn.BatchNorm1d):
+            put(stats, path, "mean", m.running_mean)
+            put(stats, path, "var", m.running_var)
+    return {"params": params, "batch_stats": stats} if stats else {"params": params}

@@ -1,14 +1,17 @@
 """Landmark clean-up for inference (numpy copies of the steps of
 ``geneface_tpu/inference/landmark_postprocess.py`` that the head render
-uses): per-region clamp, causal EMA, temporal Gaussian, centered windows."""
+uses): per-region clamp, causal EMA, the LLE projection toward the
+training video's landmarks, temporal Gaussian, centered windows."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "clamp_lm3d_regions",
     "ema_smooth_lm3d",
+    "lle_project_lm3d",
     "gaussian_smooth_lm3d",
     "get_win_conds",
 ]
@@ -47,6 +50,24 @@ def ema_smooth_lm3d(
             lm[i, sl] = lam * moving[sl] + (1 - lam) * lm[i, sl]
         moving = lm[i].copy()
     return lm
+
+
+def lle_project_lm3d(lm: np.ndarray, database: np.ndarray, percent: float, K: int = 10,
+                     device=None) -> np.ndarray:
+    """Blend ``lm [T, 68, 3]`` toward its LLE projection onto ``database
+    [N, 68*3]`` (float32, on ``device``, the card by default):
+    ``(1 - percent)·lm + percent·fused``; ``K`` is capped at ``N``."""
+    if percent <= 0:
+        return lm
+    from geneface_tpu_torch import resolve_device
+    from geneface_tpu_torch.models.postnet.lle import compute_lle_projection
+
+    dev = resolve_device(device)
+    K = min(K, len(database))
+    feats = torch.as_tensor(lm.reshape(len(lm), -1), dtype=torch.float32, device=dev)
+    db = torch.as_tensor(database.reshape(len(database), -1), dtype=torch.float32, device=dev)
+    fused, _ = compute_lle_projection(feats, db, K)
+    return (1 - percent) * lm + percent * fused.cpu().numpy().reshape(lm.shape)
 
 
 def gaussian_smooth_lm3d(lm: np.ndarray, sigma: float) -> np.ndarray:

@@ -28,6 +28,7 @@ from geneface_tpu_torch.inference.landmark_postprocess import (
     ema_smooth_lm3d,
     gaussian_smooth_lm3d,
     get_win_conds,
+    lle_project_lm3d,
 )
 from geneface_tpu_torch.models.radnerf import (
     TorsoOccupancyState,
@@ -157,14 +158,20 @@ class RADNeRFInfer:
         return pick_ray_capacity(n, ds.H * ds.W)
 
     def conds_from_lm3d(self, idexp_lm3d: np.ndarray) -> np.ndarray:
-        """Raw idexp lm3d [T, 68, 3] → normalized cond windows [T, W, 204]."""
+        """Raw idexp lm3d [T, 68, 3] → normalized cond windows [T, W, 204]:
+        normalize, clamp, LLE (``infer_lm3d_lle_percent > 0``), EMA,
+        Gaussian, windows."""
         cfg = self.cfg
-        if cfg.get("infer_lm3d_lle_percent", 0.0) > 0:
-            raise NotImplementedError("LLE landmark projection is not ported yet")
         mean = np.asarray(self.dataset.idexp_lm3d_mean)
         std = np.asarray(self.dataset.idexp_lm3d_std)
         lm = (idexp_lm3d.reshape(-1, 68, 3) - mean) / std
         lm = clamp_lm3d_regions(lm, cfg.get("infer_lm3d_clamp_std", 2.5))
+        lle_percent = cfg.get("infer_lm3d_lle_percent", 0.0)
+        # LLE toward the video's own (first-window) conditions; conditions
+        # that are not landmark windows skip it, as in the JAX package
+        if lle_percent > 0 and self.dataset.conds.ndim == 3:
+            db = self.dataset.conds[:, 0].reshape(-1, 68, 3)
+            lm = lle_project_lm3d(lm, db, lle_percent, device=self.device)
         lm = ema_smooth_lm3d(lm)
         lm = gaussian_smooth_lm3d(lm, cfg.get("infer_lm3d_smooth_sigma", 0.0))
         flat = lm.reshape(-1, 204).astype(np.float32)

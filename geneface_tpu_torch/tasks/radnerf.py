@@ -55,6 +55,24 @@ class RADNeRFTask(Task):
         self.device = resolve_device(device)
         self.dtype = dtype
 
+    @classmethod
+    def run_inference(cls, cfg, device=None) -> str:
+        """``--infer``: the predicted lm3d ``.npy`` of stage A
+        (``infer_cond_name``; without it the dataset's own conditions) →
+        the rendered mp4 (``infer_out_video_name``) with the audio
+        (``infer_audio_source_name``) muxed in → its path."""
+        from geneface_tpu_torch.inference.radnerf_infer import RADNeRFInfer
+
+        infer = RADNeRFInfer(cfg, device=device)
+        cond_name = cfg.get("infer_cond_name", "")
+        lm3d = np.load(cond_name).reshape(-1, 68, 3) if cond_name else None
+        return infer.render_video(
+            lm3d,
+            out_path=cfg.get("infer_out_video_name") or "infer_out/out.mp4",
+            audio_path=cfg.get("infer_audio_source_name") or None,
+            n_frames=cfg.get("infer_n_frames") or None,
+        )
+
     # ------------------------------------------------------------- build ----
     def build(self) -> None:
         cfg = self.cfg

@@ -1,13 +1,14 @@
-"""Training entry point of the port.
+"""Training and inference entry point of the port.
 
     python -m geneface_tpu_torch.tasks.run --config egs/... --exp_name <dir>
-        [--hparams a=1,b=2] [--reset] [--device cpu]
+        [--hparams a=1,b=2] [--reset] [--infer] [--device cpu]
 
 Mirrors ``geneface_tpu/tasks/run.py``: the config's ``task_cls`` (the JAX
 package's class path) selects the port's task through :data:`TASKS`, and the
 task trains under the :class:`~geneface_tpu_torch.training.trainer.Trainer`
-in ``checkpoints/<exp_name>``. Training runs on ``cuda`` unless ``--device
-cpu`` is given.
+in ``checkpoints/<exp_name>``, or with ``--infer`` runs the task's
+``run_inference`` (the post-net: wav → lm3d ``.npy``; RAD-NeRF: lm3d →
+video). Both run on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import argparse
 import os
 
 from geneface_tpu_torch.config.config import load_config
+from geneface_tpu_torch.tasks.postnet import PostnetAdvSyncTask
 from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
 from geneface_tpu_torch.tasks.radnerf_torso import RADNeRFTorsoTask
 from geneface_tpu_torch.training.trainer import Trainer
@@ -26,6 +28,7 @@ __all__ = ["TASKS", "resolve_task", "main"]
 TASKS = {
     "geneface_tpu.tasks.radnerf.RADNeRFTask": RADNeRFTask,
     "geneface_tpu.tasks.radnerf_torso.RADNeRFTorsoTask": RADNeRFTorsoTask,
+    "geneface_tpu.tasks.postnet.PostnetAdvSyncTask": PostnetAdvSyncTask,
 }
 
 
@@ -42,14 +45,18 @@ def main(argv: list | None = None) -> int:
     ap.add_argument("--exp_name", default="")
     ap.add_argument("--hparams", default="")
     ap.add_argument("--reset", action="store_true", help="ignore a saved config.yaml")
+    ap.add_argument("--infer", action="store_true", help="run the task's inference")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     work_dir = os.path.join("checkpoints", args.exp_name) if args.exp_name else None
     cfg = load_config(args.config, overrides=args.hparams, work_dir=work_dir,
                       use_saved=not args.reset)
     cfg["exp_name"] = args.exp_name
-    task = resolve_task(cfg["task_cls"])(cfg, device=args.device)
-    return Trainer(task).fit()
+    task_cls = resolve_task(cfg["task_cls"])
+    if args.infer:
+        task_cls.run_inference(cfg, device=args.device)
+        return 0
+    return Trainer(task_cls(cfg, device=args.device)).fit()
 
 
 if __name__ == "__main__":

@@ -52,6 +52,11 @@ class Task:
     def checkpoint_payload(self, step: int) -> dict:
         raise NotImplementedError
 
+    @classmethod
+    def run_inference(cls, cfg, device=None):
+        """The ``--infer`` entry of the task family (overridden per task)."""
+        raise NotImplementedError(f"{cls.__name__} has no inference pipeline")
+
 
 class Trainer:
     def __init__(self, task: Task):

@@ -1,5 +1,5 @@
-"""The port and ``chip_smoke.py`` import neither JAX/flax nor the JAX
-package: every module is imported in a fresh interpreter and
+"""The port and ``chip_smoke.py`` import neither JAX/flax, ``transformers``
+nor the JAX package: every module is imported in a fresh interpreter and
 ``sys.modules`` is checked afterwards."""
 
 import os
@@ -30,7 +30,7 @@ def test_imports_no_jax(extra):
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'geneface_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'transformers', 'geneface_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
