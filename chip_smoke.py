@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's five paths at the full width of
+Drives the port's six paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, and of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -30,7 +30,17 @@ with random weights from a seeded ``torch.Generator``:
   checkpoint through ``RADNeRFInfer.render_frames`` driven by that lm3d
   with the LLE projection on; HuBERT, VAE, post-net, the LLE'd conditions
   and a frame held against the CPU plain path on the card's inputs; each
-  stage timed, and the LLE alone against a 6,000-row database.
+  stage timed, and the LLE alone against a 6,000-row database;
+- head training through the lip phase (``train_lip``): the training cell
+  with ``finetune_lips`` from step 4 (64² lip patches, LPIPS at seeded
+  weights, ``lambda_lpips_loss`` 0.01) for 12 ``train_step`` calls, the lip
+  steps and sweeps where the JAX task puts them, every loss finite, a
+  non-zero gradient in every group on a lip step, the occupancy frozen in
+  the phase, one lip step held against the CPU plain path and LPIPS alone
+  card vs CPU; then ``Trainer.fit`` to step 4 and a fresh ``Trainer``
+  resumed to step 6 on the card, its optimizer state and ``task_step``
+  bit-identical to the checkpoint's, with the best checkpoint and each
+  validation's 512² val frame written.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
@@ -50,7 +60,7 @@ and the idle share of a frame and of a step of each path
 (``torch.profiler``; the tables go to ``smoke_out/``), the losses, one line
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call), and one ``{"kernels":
-[...]}`` JSON line listing every site of the five paths.
+[...]}`` JSON line listing every site of the six paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -83,6 +93,10 @@ RENDER_FRAMES = 4
 TRAIN_RAYS = 65536
 TRAIN_STEPS = 20
 CHECK_RAYS = 4096
+#: the train_lip path: 12 steps, the lip phase from step 4, 64² patches
+LIP_STEPS = 12
+LIP_START = 4
+LIP_PATCH = 64
 #: the audio_serve path: an 8 s voiced wav at 16 kHz; the LLE percent of
 #: its render (the reference's own --infer value is not in the repo: 1.0);
 #: a user's landmark database (a ~4-minute video at 25 fps) for the LLE
@@ -1081,7 +1095,7 @@ def train_cfg(cfg: dict) -> dict:
     )
 
 
-def check_grads_vs_cpu(task, batch, path: str = "train") -> dict:
+def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> dict:
     """One step's loss and gradients on the card against the port's plain
     CPU path, on the trained task's parameters and occupancy, one batch (cut
     to ``CHECK_RAYS`` rays) and the same noises, with float32 MLPs on both
@@ -1091,10 +1105,20 @@ def check_grads_vs_cpu(task, batch, path: str = "train") -> dict:
     ambient coordinates differ in their last bits, and one that sits on a
     block boundary of the fused ambient grid can take another row, where
     the feature jumps (the fused layout's aliasing). Over twelve runs on the
-    card that moved the loss by up to 2.4e-5 (relative) and a gradient by
-    up to 2.3e-2 (relative L2, the position hash table); a fault such as a
-    missing gradient gives 1. The torso task's frozen head has no gradient
-    on either side.
+    card, with each side's own rays, that moved the loss by up to 2.4e-5
+    (relative) and a gradient by up to 2.3e-2 (relative L2, the position
+    hash table); a fault such as a missing gradient gives 1. The torso
+    task's frozen head has no gradient on either side. ``lip``: the batch
+    is a lip patch (its ``CHECK_RAYS`` pixels), trained with the LPIPS term
+    on both sides.
+
+    Both sides rebuild the batch's rays from its pixel indices, and the
+    card's matmul and norm round some directions differently in the last
+    bit; a sample on a grid cell's edge then reads the next cell, which on
+    the dense 64² lip patch moved the position grid's gradient by 1.3e-2
+    and a cancelling sum (the attention conv's bias, one scalar) by 0.41
+    (relative L2, on an H100 80GB HBM3 at 700 W). So the CPU side takes
+    the card's rays, held to its own first: max abs error <= 1e-6.
 
     The torso grid is looked up at ``x + Δxy``, with ``Δxy`` from the
     torso's deform net, which card and CPU round differently in its last
@@ -1136,7 +1160,14 @@ def check_grads_vs_cpu(task, batch, path: str = "train") -> dict:
             t.model.torso_deform_net.register_forward_hook(same_deform(dev))
         else:
             t._spr_bucket, t._latk_bucket = task._spr_bucket, task._latk_bucket
-        loss, losses = t.loss_fn(t.device_batch(cut, task._step), noises.to(t.device), train=True)
+        dbatch = t.device_batch(cut, task._step)
+        if dev == "cuda":
+            rays = {k: dbatch[k].detach().cpu() for k in ("rays_o", "rays_d")}
+        else:  # the card's rays, held to the CPU's first
+            ray_err = max(float((dbatch[k] - v).abs().max()) for k, v in rays.items())
+            dbatch.update(rays)
+        loss, losses = t.loss_fn(dbatch, noises.to(t.device), train=True,
+                                 **({"lip": True} if lip else {}))
         loss.backward()
         out[dev] = (float(loss.detach()), float(losses["mean_samples"]),
                     {n: p.grad.detach().cpu().double() for n, p in t.model.named_parameters()
@@ -1153,8 +1184,11 @@ def check_grads_vs_cpu(task, batch, path: str = "train") -> dict:
     # the march rounds its positions as on the CPU: the same samples
     if abs(lg - lc) > 1e-3 * abs(lc) or sg != sc_:
         raise AssertionError(f"{path}: loss {lg} vs {lc} / mean samples {sg} vs {sc_}")
+    if not ray_err <= 1e-6:
+        raise AssertionError(f"{path}: rays card vs CPU differ by {ray_err}")
     res = {"rays": CHECK_RAYS, "mlp_dtype": "float32", "loss_cuda": lg, "loss_cpu": lc,
            "mean_samples": sg, "worst_grad_rel_l2": max(errs.values()),
+           "worst_grad": max(errs, key=errs.get), "rays_max_abs_err": ray_err,
            "n_params_with_grad": len(gc)}
     if deform:
         scale = float(deform["cpu"].abs().max())
@@ -1294,6 +1328,203 @@ def train_phase(cfg, out_dir: str, path: str = "train") -> tuple:
     return record, launches, sites
 
 
+def lip_cfg(cfg: dict) -> dict:
+    """The lip cell: the training cell with the lip phase from step
+    ``LIP_START`` (``base.yaml``'s patch size and LPIPS weight), seeded
+    random LPIPS weights, and the sweep every 8 steps, so that step 8's
+    sweep falls inside the phase, where it is frozen."""
+    return dict(
+        train_cfg(cfg), finetune_lips=True, finetune_lips_start_iter=LIP_START,
+        lip_patch_size=LIP_PATCH, lambda_lpips_loss=0.01, allow_random_lpips=True,
+        update_extra_interval=8,
+    )
+
+
+def lpips_vs_cpu(task, batch) -> dict:
+    """The task's LPIPS alone on the card against a CPU copy (TF32 off) on
+    the lip batch's ground-truth patch and a seeded perturbation of it: the
+    distance and its gradient within 1e-5 of max |ref|; forward + backward
+    ms by CUDA events."""
+    import torch
+
+    P = LIP_PATCH
+    gt = torch.as_tensor(batch["gt_img_u8"]).float().reshape(1, P, P, 3) / 255.0
+    noise = torch.randn(gt.shape, generator=torch.Generator().manual_seed(9))
+    x = (gt + 0.05 * noise).clamp(0, 1)
+    cpu = type(task.lpips)()
+    cpu.load_state_dict({k: v.cpu() for k, v in task.lpips.state_dict().items()})
+    out = {}
+    for name, net, dev in (("cuda", task.lpips, task.device), ("cpu", cpu, "cpu")):
+        xr = x.clone().to(dev).requires_grad_(True)
+        d = net(xr, gt.to(dev))
+        d.sum().backward()
+        out[name] = (d.detach().cpu().double(), xr.grad.cpu().double())
+    (dg, gg), (dc, gc) = out["cuda"], out["cpu"]
+    res = {"distance_cuda": float(dg[0]), "distance_cpu": float(dc[0]),
+           "distance_rel_err": float((dg - dc).abs().max() / dc.abs().max()),
+           "grad_rel_err": float((gg - gc).abs().max() / gc.abs().max())}
+    if not (res["distance_rel_err"] <= 1e-5 and res["grad_rel_err"] <= 1e-5):
+        raise AssertionError(f"LPIPS card vs CPU: {res}")
+    xc, gtc = x.clone().to(task.device).requires_grad_(True), gt.to(task.device)
+    res["fwd_bwd_ms"] = events_ms(lambda: task.lpips(xc, gtc).sum().backward())
+    res["fwd_ms"] = events_ms(lambda: task.lpips(xc.detach(), gtc))
+    return res
+
+
+def train_lip_phase(cfg, out_dir: str, path: str = "train_lip") -> tuple:
+    """The lip phase of head training: ``RADNeRFTask.train_step`` for
+    ``LIP_STEPS`` steps of the lip cell (the phase from step ``LIP_START``;
+    the prefetching iterator makes every other step from step 6 a 64²
+    lip patch of 4,096 rays), then a resume through ``Trainer.fit`` on the
+    card; → (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.training.optim import param_groups, radnerf_label_fn
+
+    task = RADNeRFTask(lip_cfg(cfg))  # cuda, bf16 MLPs
+    task.build()
+    print(f"{path}: LPIPS weights are a seeded random init (allow_random_lpips): the "
+          "released LPIPS weights are not in the repo")
+    batches = task.train_batches()
+    n_head, _ = n_grid_groups(task.model)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    step_ms, losses, lips, sweeps, occ_at = [], [], [], [], {}
+    lip_batch = grad_check = None
+    for i in range(LIP_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = task.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        lip = "lpips_loss" in out
+        losses.append({k: float(out[k]) for k in ("total_loss", "mse_loss", "lpips_loss")
+                       if k in out})
+        if lip:
+            lips.append(i)
+            if lip_batch is None:  # the first lip step's gradients, by group
+                lip_batch = batch
+                grad_check = {g["name"]: sum(
+                    int(p.grad is not None and bool((p.grad != 0).any())) for p in g["params"])
+                    for g in param_groups(task.model, radnerf_label_fn,
+                                          {"net": 1, "grid": 1, "att": 1})}
+        if out["occupancy_sweep"]:
+            sweeps.append(i)
+        if task.in_lip_phase():
+            occ_at[i] = [x.clone() for x in task.occ]
+    launches = dict(LAUNCHES)
+    print(f"{path}: lip steps {lips}, sweep steps {sweeps}; losses " + json.dumps(
+        [{k: round(v, 6) for k, v in x.items()} for x in losses]))
+    want = {"gather_rows": LIP_STEPS * (n_head + 1) + len(sweeps) * 16 * n_head,
+            "scatter_add_rows": LIP_STEPS * (1 + n_head)}
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+    if lips != list(range(LIP_START + 2, LIP_STEPS, 2)) or sweeps != [0]:
+        raise AssertionError(f"{path}: lip steps {lips}, sweeps {sweeps}")
+    if not all(np.isfinite(v) for x in losses for v in x.values()):
+        raise AssertionError(f"{path}: non-finite loss")
+    if not all(losses[i]["lpips_loss"] > 0 for i in lips):
+        raise AssertionError(f"{path}: an LPIPS loss is not positive")
+    if not grad_check or not all(grad_check.values()):
+        raise AssertionError(f"{path}: a parameter group has a zero gradient on a lip "
+                             f"step: {grad_check}")
+    first = min(occ_at)
+    moved = [i for i in occ_at if not all(torch.equal(a, b) for a, b in
+                                          zip(occ_at[i], occ_at[first]))]
+    if moved:
+        raise AssertionError(f"{path}: the occupancy moved inside the lip phase at {moved}")
+    print(f"{path}: parameters with a non-zero gradient on lip step {lips[0]}, by group: "
+          f"{grad_check}; occupancy bit-identical over steps {sorted(occ_at)}")
+    lip_ms = sorted(step_ms[i] for i in lips)[len(lips) // 2]
+    normal = [step_ms[i] for i in range(2, LIP_STEPS) if i not in lips and i not in sweeps]
+    normal_ms = sorted(normal)[len(normal) // 2]
+    print(f"{path}: median lip step {lip_ms:.3f} ms ({LIP_PATCH}² = "
+          f"{LIP_PATCH * LIP_PATCH} rays), median normal step {normal_ms:.3f} ms "
+          f"({task.cfg['n_rays']} rays; steps 2+ without a sweep)")
+    record = {"step_ms": step_ms, "lip_steps": lips, "sweep_steps": sweeps,
+              "median_lip_step_ms": lip_ms, "median_normal_step_ms": normal_ms,
+              "losses": losses, "nonzero_grad_params_lip_step": grad_check}
+    record["lpips"] = lpips_vs_cpu(task, lip_batch)
+    print(f"{path}: LPIPS alone card vs CPU " + json.dumps(record["lpips"]))
+    prof = profile_train_step(task, lip_batch, out_dir, lip_ms, path, lip=True)
+    print(f"{path}: lip step device time {fmt_ms(prof['device_busy_ms'], ' ms')} of "
+          f"{prof['wall_ms']:.3f} ms wall (idle share {fmt_ms(prof['idle_share'])}, "
+          f"{prof['n_device_ops']} device operations); spans ms "
+          + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
+    record.update(profile=prof,
+                  grad_check=check_grads_vs_cpu(task, lip_batch, path, lip=True))
+    # the kernel sites of one lip step
+    sites = name_sites(capture_calls(lambda: task.train_step(lip_batch)),
+                       grid_names(task.model), path)
+    record["resume"] = resume_on_card(cfg, path)
+    return record, launches, sites
+
+
+def resume_on_card(cfg, path: str = "train_lip") -> dict:
+    """``Trainer.fit`` of the lip cell to step 4 (validation and a
+    checkpoint every 2 steps, each validation rendering a 512² val frame),
+    then a fresh ``Trainer`` resumed to step 6: the optimizer state and
+    ``task_step`` right after the restore equal the checkpoint's bit for
+    bit; the best checkpoint, ``val/full_frame_psnr`` and the frames' images
+    are written."""
+    import numpy as np
+
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.training.trainer import Trainer
+    from geneface_tpu_torch.utils.checkpoint import load_checkpoint
+
+    work = os.path.join(os.path.dirname(cfg["work_dir"]), "work_lip")
+    rcfg = dict(lip_cfg(cfg), work_dir=work, val_check_interval=2, tb_log_interval=2,
+                num_sanity_val_steps=1, eval_max_batches=1, num_ckpt_keep=2)
+    t0 = time.perf_counter()
+    if Trainer(RADNeRFTask(dict(rcfg, max_updates=4))).fit() != 4:
+        raise AssertionError(f"{path}: the first run did not reach step 4")
+    t1 = time.perf_counter()
+    saved = load_checkpoint(os.path.join(work, "model_ckpt_steps_4.ckpt"))
+    task = RADNeRFTask(dict(rcfg, max_updates=6))
+    seen = {}
+    on_restore = task.on_restore
+
+    def record_restore(extra):
+        on_restore(extra)
+        seen["opt"] = task.optimizer.state_dict()
+        seen["task_step"] = task._step
+
+    task.on_restore = record_restore
+    if Trainer(task).fit() != 6:
+        raise AssertionError(f"{path}: the resumed run did not reach step 6")
+    t2 = time.perf_counter()
+    opt = saved["state"]["opt_state"]
+    diff = [k for k in ("count", "skipped") if not np.array_equal(seen["opt"][k], opt[k])]
+    for k in ("mu", "nu"):
+        from geneface_tpu_torch.convert import flax_to_state_dict
+
+        a, b = flax_to_state_dict(seen["opt"][k]), flax_to_state_dict(opt[k])
+        diff += [f"{k}:{n}" for n in b if n not in a or not np.array_equal(a[n], b[n])]
+        diff += [f"{k}:{n}" for n in a if n not in b]
+    if seen["task_step"] != saved["extra"]["task_step"]:
+        diff.append("task_step")
+    if diff:
+        raise AssertionError(f"{path}: restored state differs from the checkpoint in {diff}")
+    rows = [json.loads(x) for x in open(os.path.join(work, "metrics.jsonl"))]
+    psnr = {r["step"]: r["val/full_frame_psnr"] for r in rows if "val/full_frame_psnr" in r}
+    images = sorted(os.listdir(os.path.join(work, "images", "val_render")))
+    files = sorted(os.listdir(work))
+    if (sorted(psnr) != [2, 4, 6] or not all(np.isfinite(v) for v in psnr.values())
+            or len(images) != 3 or "model_ckpt_best.ckpt" not in files
+            or "model_ckpt_steps_6.ckpt" not in files):
+        raise AssertionError(f"{path}: resume work dir {files}, images {images}, psnr {psnr}")
+    res = {"first_run_s": t1 - t0, "resumed_run_s": t2 - t1, "full_frame_psnr": psnr,
+           "images": images, "work_dir": files, "count": int(opt["count"]),
+           "task_step": int(saved["extra"]["task_step"])}
+    print(f"{path}: resume on the card passed: " + json.dumps(res))
+    return res
+
+
 def sweep_ms(task) -> float:
     """Wall time of one occupancy sweep (the head's density sweep, or the
     torso's alpha sweep) between CUDA events, the step counter set to a
@@ -1315,12 +1546,13 @@ def sweep_ms(task) -> float:
     return start.elapsed_time(end)
 
 
-def profile_train_step(task, batch, out_dir: str, wall_ms: float, path: str = "train") -> dict:
+def profile_train_step(task, batch, out_dir: str, wall_ms: float, path: str = "train",
+                       lip: bool = False) -> dict:
     """One step without a sweep: the spans of forward, backward and
     optimizer on the device timeline (CUDA events, an unprofiled step), the
     render's ``gf::`` stage spans and the device time by kernel
     (``torch.profiler``, a second step; table in
-    ``out_dir/<path>_step_profile.txt``)."""
+    ``out_dir/<path>_step_profile.txt``); ``lip``: a lip step."""
     import torch
     from torch.profiler import ProfilerActivity
 
@@ -1331,7 +1563,7 @@ def profile_train_step(task, batch, out_dir: str, wall_ms: float, path: str = "t
         noises = torch.rand(dbatch["rays_o"].shape[0], generator=task.generator,
                             device=task.device)
         task.optimizer.zero_grad(set_to_none=True)
-        loss, _ = task.loss_fn(dbatch, noises, train=True)
+        loss, _ = task.loss_fn(dbatch, noises, train=True, **({"lip": True} if lip else {}))
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -1393,7 +1625,8 @@ def main() -> int:
         phases = [("serve", serve_phase, cfg), ("train", train_phase, cfg),
                   ("torso_serve", serve_phase, torso_cfg(cfg)),
                   ("torso_train", train_phase, torso_cfg(cfg)),
-                  ("audio_serve", audio_serve_phase, torso_cfg(cfg))]
+                  ("audio_serve", audio_serve_phase, torso_cfg(cfg)),
+                  ("train_lip", train_lip_phase, cfg)]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

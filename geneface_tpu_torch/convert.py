@@ -29,6 +29,11 @@ their submodules as flax does, so :func:`load_flax_variables` and
 - ``LayerNorm``/``GroupNorm``: ``scale`` ↔ ``weight``; ``BatchNorm1d`` also
   ``batch_stats`` ``mean``/``var`` ↔ ``running_mean``/``running_var``;
 - ``Embedding``: ``embedding`` ↔ ``weight``.
+
+LPIPS (:mod:`geneface_tpu_torch.models.lpips`): :func:`lpips_state_dict` and
+:func:`lpips_flax_params` map the flax tree ``alex/conv{i}/{kernel,bias}``
+(kernel HWIO) and ``lin{i}`` ↔ ``alex.conv{i}.{weight,bias}`` (weight
+OIHW) and ``lin{i}``.
 """
 
 from __future__ import annotations
@@ -45,6 +50,8 @@ __all__ = [
     "state_dict_to_flax",
     "load_flax_variables",
     "flax_variables",
+    "lpips_state_dict",
+    "lpips_flax_params",
 ]
 
 _AUDIO_DENSE = {
@@ -228,3 +235,32 @@ def flax_variables(model: nn.Module) -> dict:
             put(stats, path, "mean", m.running_mean)
             put(stats, path, "var", m.running_var)
     return {"params": params, "batch_stats": stats} if stats else {"params": params}
+
+
+def lpips_state_dict(params: dict) -> dict:
+    """The flax LPIPS tree (with or without the outer ``"params"`` level)
+    → ``{name: numpy array}`` for ``LPIPS.load_state_dict``."""
+    tree = params.get("params", params)
+    sd = {}
+    for name, conv in tree["alex"].items():
+        sd[f"alex.{name}.weight"] = np.asarray(conv["kernel"]).transpose(3, 2, 0, 1)
+        sd[f"alex.{name}.bias"] = np.asarray(conv["bias"])
+    for name, v in tree.items():
+        if name != "alex":
+            sd[name] = np.asarray(v)
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def lpips_flax_params(model: nn.Module) -> dict:
+    """Inverse of :func:`lpips_state_dict` → ``{"params": tree}``."""
+    alex, out = {}, {}
+    for name, t in model.state_dict().items():
+        v = t.detach().cpu().numpy()
+        parts = name.split(".")
+        if parts[0] == "alex":
+            leaf = v.transpose(2, 3, 1, 0) if parts[2] == "weight" else v
+            alex.setdefault(parts[1], {})["kernel" if parts[2] == "weight" else "bias"] = (
+                np.array(leaf, order="C"))
+        else:
+            out[name] = np.array(v, order="C")
+    return {"params": {"alex": alex, **out}}

@@ -7,8 +7,12 @@ rays plus the background the head is composited over. For training it
 serves random ray batches drawn from its seeded ``RandomState``: a light
 batch of pixel indices, the face rect and uint8 pixels (rays are rebuilt on
 the device, as the JAX package's default ``device_rays`` does), one frame
-per step in a shuffled, prefetched epoch order. The native C++ batch loader
-of the JAX package is not ported: the numpy path gives the same batches.
+per step in a shuffled, prefetched epoch order. While ``finetune_lip_flag``
+is set (the lip fine-tune phase), a training item is instead the
+``lip_patch_size``² square patch centred on the frame's lip rect (clipped
+into the frame), row-major, marked ``is_lip_patch``. The native C++ batch
+loader of the JAX package is not ported: the numpy path gives the same
+batches.
 """
 
 from __future__ import annotations
@@ -131,9 +135,46 @@ class RADNeRFDataset:
             )
         else:
             raise NotImplementedError(cond_type)
+        self.lips_rects = [self._lip_rect(s) for s in self.samples]
+        self.finetune_lip_flag = False
+
+    def _lip_rect(self, sample) -> tuple:
+        """(xmin, xmax, ymin, ymax) of the lips: the sample's ``lip_rect``,
+        else the square around ``lms[48:60]`` (x from the landmarks' second
+        column), else the face rect."""
+        if "lip_rect" in sample:
+            return tuple(int(v) for v in sample["lip_rect"])
+        lms = sample.get("lms")
+        if lms is None:
+            xmin, xmax, ymin, ymax = sample["face_rect"]
+            return (int(xmin), int(xmax), int(ymin), int(ymax))
+        lips = np.asarray(lms)[48:60]
+        xmin, xmax = int(lips[:, 1].min()), int(lips[:, 1].max())
+        ymin, ymax = int(lips[:, 0].min()), int(lips[:, 0].max())
+        cx, cy = (xmin + xmax) // 2, (ymin + ymax) // 2
+        half = max(xmax - xmin, ymax - ymin) // 2
+        return (max(0, cx - half), min(self.H, cx + half),
+                max(0, cy - half), min(self.W, cy + half))
+
+    def lip_patch(self, idx: int) -> tuple:
+        """The ``lip_patch_size``² patch centred on frame ``idx``'s lip rect,
+        clipped into the frame: (xmin, xmax, ymin, ymax)."""
+        P = int(self.cfg.get("lip_patch_size", 64))
+        xmin, xmax, ymin, ymax = self.lips_rects[idx]
+        cx = np.clip((xmin + xmax) // 2, P // 2, self.H - P // 2)
+        cy = np.clip((ymin + ymax) // 2, P // 2, self.W - P // 2)
+        return (cx - P // 2, cx + P // 2, cy - P // 2, cy + P // 2)
 
     def __len__(self):
         return len(self.samples)
+
+    @staticmethod
+    def _gt(sample) -> np.ndarray:
+        """The frame's ground truth [H, W, 3] in [0, 1]."""
+        gt = np.asarray(sample["gt_img"], np.float32)
+        if gt.max() > 1.5:
+            gt = gt / 255.0
+        return gt[..., :3]
 
     def _bg_torso(self, sample) -> np.ndarray:
         """The torso composited onto the background: the head's background."""
@@ -168,37 +209,45 @@ class RADNeRFDataset:
         }
 
     def _train_item(self, idx: int) -> dict:
-        """One training batch of ``n_rays`` random pixels of frame ``idx``."""
+        """One training batch of frame ``idx``: ``n_rays`` random pixels, or
+        in the lip phase its lip patch."""
         cfg = self.cfg
         sample = self.samples[idx]
-        inds = get_rays(
-            self.poses[idx], self.intrinsics, self.H, self.W,
-            n_rays=cfg.get("n_rays", 65536), rng=self.rng,
-        )["inds"]
         out = {
             "H": self.H,
             "W": self.W,
             "idx": int(sample.get("idx", idx)),
             "pose": self.poses6[idx : idx + 1],  # [1, 6], the torso's input
             "pose_matrix": self.poses[idx],
+            "lip_rect": self.lips_rects[idx],
             "cond_wins": get_cond_window(self.conds, idx, cfg.get("smo_win_size", 5)),
         }
-        gt = np.asarray(sample["gt_img"], np.float32)
-        if gt.max() > 1.5:
-            gt = gt / 255.0
+        if self.finetune_lip_flag:
+            out["lip_rect"] = self.lip_patch(idx)
+            out["is_lip_patch"] = True
+            inds = get_rays(self.poses[idx], self.intrinsics, self.H, self.W,
+                            n_rays=1, rect=out["lip_rect"])["inds"]
+        else:
+            inds = get_rays(
+                self.poses[idx], self.intrinsics, self.H, self.W,
+                n_rays=cfg.get("n_rays", 65536), rng=self.rng,
+            )["inds"]
+        gt = self._gt(sample)
         # a light batch: rays, background coords and the face mask are
         # rebuilt on the device from the pixel indices
         out["inds"] = inds.astype(np.int32)
         out["face_rect"] = np.asarray(sample["face_rect"], np.float32)
-        out["gt_img_u8"] = _to_u8(gt.reshape(-1, gt.shape[-1])[:, :3][inds])
+        out["gt_img_u8"] = _to_u8(gt.reshape(-1, 3)[inds])
         out["bg_img_u8"] = _to_u8(self.bg_img.reshape(-1, 3)[inds])
         out["bg_torso_img_u8"] = _to_u8(self._bg_torso(sample).reshape(-1, 3)[inds])
         return out
 
-    def iter_epochs(self):
-        """Infinite per-frame iterator in shuffled epoch order. One daemon
-        thread builds the next batch while the caller's step runs; item
-        order and draws are those of a synchronous loop."""
+    def iter_epochs(self, prefetch: bool = True):
+        """Infinite per-frame iterator in shuffled epoch order. With
+        ``prefetch`` one daemon thread builds the next batch while the
+        caller's step runs; item order and draws are those of a synchronous
+        loop, and only a ``finetune_lip_flag`` change takes effect one item
+        late (as in the JAX package)."""
 
         def indices():
             while True:
@@ -207,6 +256,10 @@ class RADNeRFDataset:
                 yield from order
 
         it = indices()
+        if not prefetch:
+            for i in it:
+                yield self[int(i)]
+            return
         jobs: queue.Queue = queue.Queue(maxsize=2)
         results: queue.Queue = queue.Queue(maxsize=2)
 

@@ -12,7 +12,9 @@ generator), the torso on the batch's screen coordinates, and the loss —
 ``lambda_weights_entropy`` times the torso alpha's entropy — then Adam over
 the torso nets ×1 and the torso grid ×10 (the head is frozen, see
 :func:`build_torso_optimizer`). Checkpoints are in the JAX layout with
-``torso_occ`` in the state. The val full-frame render is not ported.
+``torso_occ`` and the optimizer state in the state and ``task_step`` in the
+extras; they resume as the head task's do. After each logged validation
+the task renders one full head+torso val frame and logs its PSNR.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from torch.profiler import record_function
 from geneface_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from geneface_tpu_torch.models.radnerf import (
     OccupancyState,
+    TorsoOccupancyState,
     init_occupancy,
     init_torso_occupancy,
     mark_untrained_grid,
@@ -182,7 +185,38 @@ class RADNeRFTorsoTask(RADNeRFTask):
         losses["occupancy_sweep"] = float(swept)
         return losses
 
+    @torch.no_grad()
+    def render_full_frame(self, ds=None, idx: int = 0) -> tuple:
+        """All H·W rays of frame ``idx``: the head (the walk, unjittered)
+        over the torso at the frame's pose and torso code over the
+        background → (image [H, W, 3], ground truth [H, W, 3]), float
+        numpy."""
+        ds = ds or self.val_ds
+        model = self.model
+        dev = self.device
+        rays_o, rays_d, cond, gt = self.frame_inputs(ds, idx)
+        cond_feat = model.cal_cond_feat(cond)
+        codes = model.individual_embeddings
+        ind = codes[0] if codes is not None else None
+        t_codes = model.torso_individual_codes
+        t_ind = t_codes[idx % t_codes.shape[0]] if t_codes is not None else None
+        pose6 = torch.as_tensor(ds.poses6[idx : idx + 1], device=dev)
+        out = render_rays_radnerf_torso(
+            lambda xyz, dirs: model(xyz, dirs, cond_feat, ind),
+            lambda xy, head_rgb, head_ws: model.forward_torso(xy, pose6, t_ind, head_rgb, head_ws),
+            rays_o, rays_d, torch.as_tensor(ds.bg_coords, device=dev), self._occ_view,
+            self.torso_occ, density_thresh_torso=float(self.cfg.get("density_thresh_torso", 0.01)),
+            bg_color=torch.as_tensor(ds.bg_img.reshape(-1, 3), device=dev),
+            **self.render_kwargs(),
+        )
+        return out["rgb_map"].float().cpu().numpy().reshape(ds.H, ds.W, 3), gt
+
     def checkpoint_payload(self, step: int) -> dict:
         payload = super().checkpoint_payload(step)
         payload["state"]["torso_occ"] = tuple(self.torso_occ)
         return payload
+
+    def restore_state(self, state: dict) -> None:
+        super().restore_state(state)
+        self.torso_occ = TorsoOccupancyState(
+            *[torch.as_tensor(np.asarray(x), device=self.device) for x in state["torso_occ"]])

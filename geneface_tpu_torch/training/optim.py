@@ -9,15 +9,30 @@ are those of ``radnerf_label_fn``) and the step does optax's arithmetic in
 its order. The update count and the finite check stay on the device: a
 step whose gradients are not all finite leaves parameters, moments and
 count as they were, through ``torch.where``, without a host sync.
+
+``accumulate_grad_batches = k > 1`` is ``optax.MultiSteps`` inside
+``apply_if_finite``: each micro-batch's gradients are judged alone (a
+non-finite one is skipped and not accumulated), the accepted ones kept as
+MultiSteps' running mean, and every k-th accepted micro-step applies Adam
+(clipping included) to that mean; the other micro-steps leave the
+parameters, the moments and the count as they were.
+
+:meth:`MultiGroupAdam.state_dict` is the checkpoint's ``opt_state``: plain
+numpy in the flax parameter layout, ``{count, skipped, mu, nu}`` (plus
+``mini_step`` and ``acc_grads`` when accumulating);
+:meth:`~MultiGroupAdam.load_state_dict` reads it back, or the Adam state of
+a JAX trainer's checkpoint (see
+:func:`geneface_tpu_torch.utils.checkpoint.adam_state_from_optax`).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Mapping
 
+import numpy as np
 import torch
 
-from geneface_tpu_torch.convert import flax_path
+from geneface_tpu_torch.convert import flax_path, flax_to_state_dict, state_dict_to_flax
 
 __all__ = [
     "radnerf_label_fn",
@@ -50,15 +65,17 @@ def torso_label_fn(path: str) -> str:
 
 def param_groups(model: torch.nn.Module, label_of_path: Callable[[str], str],
                  multipliers: Mapping[str, float]) -> list:
-    """One param group per label (with its lr multiplier ``mult``), each
-    parameter labelled by its flax path ``params/...``."""
-    groups = {name: [] for name in multipliers}
+    """One param group per label (with its lr multiplier ``mult`` and the
+    ``state_dict`` names of its parameters, ``param_names``), each parameter
+    labelled by its flax path ``params/...``."""
+    groups = {name: ([], []) for name in multipliers}
     for name, p in model.named_parameters():
         label = label_of_path("/".join(("params",) + flax_path(name)))
-        groups[label].append(p)
+        groups[label][0].append(p)
+        groups[label][1].append(name)
     return [
-        {"params": ps, "name": name, "mult": float(multipliers[name])}
-        for name, ps in groups.items() if ps
+        {"params": ps, "name": name, "mult": float(multipliers[name]), "param_names": names}
+        for name, (ps, names) in groups.items() if ps
     ]
 
 
@@ -68,23 +85,38 @@ class MultiGroupAdam(torch.optim.Optimizer):
     ``schedule(count)`` takes the float32 update count (0 for the first
     update). ``clip_grad_value`` / ``clip_grad_norm`` clip the gradients
     first (optax ``clip`` / ``clip_by_global_norm``); ``guard_nan_grads``
-    skips a step whose incoming gradients are not all finite.
+    skips a step whose incoming gradients are not all finite;
+    ``accumulate_grad_batches`` > 1 applies Adam to the mean of that many
+    accepted micro-batches (optax ``MultiSteps``).
     """
 
     def __init__(self, groups: list, schedule: Callable, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-15, clip_grad_norm: float = 0.0,
-                 clip_grad_value: float = 0.0, guard_nan_grads: bool = True):
+                 clip_grad_value: float = 0.0, guard_nan_grads: bool = True,
+                 accumulate_grad_batches: int = 1):
         super().__init__(groups, dict(mult=1.0))
         self.schedule = schedule
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.clip_grad_norm = float(clip_grad_norm)
         self.clip_grad_value = float(clip_grad_value)
         self.guard_nan_grads = bool(guard_nan_grads)
+        self.accumulate = int(accumulate_grad_batches)
         dev = groups[0]["params"][0].device
         #: updates applied so far (the optax ``count``), on the device
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
-        #: steps skipped for non-finite gradients, on the device
+        #: steps (micro-batches) skipped for non-finite gradients, on the device
         self.skipped = torch.zeros((), dtype=torch.int32, device=dev)
+        #: accepted micro-batches since the last update (MultiSteps' ``mini_step``)
+        self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _slots(self, p: torch.Tensor) -> dict:
+        st = self.state[p]
+        if not st:
+            st["mu"] = torch.zeros_like(p)
+            st["nu"] = torch.zeros_like(p)
+            if self.accumulate > 1:
+                st["acc"] = torch.zeros_like(p)
+        return st
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -93,6 +125,25 @@ class MultiGroupAdam(torch.optim.Optimizer):
         params = [p for g in self.param_groups for p in g["params"]]
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        accept = ok if self.guard_nan_grads else torch.ones_like(ok)
+        if self.accumulate > 1:
+            # MultiSteps' running mean over the accepted micro-batches; Adam
+            # moves on the k-th of them
+            n = self.mini_step.float() + 1.0
+            means = []
+            for p, g in zip(params, grads):
+                acc = self._slots(p)["acc"]
+                means.append(acc + (g - acc) / n)
+            apply = accept & (self.mini_step == self.accumulate - 1)
+            for p, m in zip(params, means):
+                st = self.state[p]
+                st["acc"] = torch.where(apply, torch.zeros_like(m),
+                                        torch.where(accept, m, st["acc"]))
+            self.mini_step = torch.where(
+                accept, (self.mini_step + 1) % self.accumulate, self.mini_step)
+            grads = means
+        else:
+            apply = accept
         if self.clip_grad_value > 0:
             grads = [g.clamp(-self.clip_grad_value, self.clip_grad_value) for g in grads]
         if self.clip_grad_norm > 0:
@@ -104,17 +155,13 @@ class MultiGroupAdam(torch.optim.Optimizer):
         bc1 = 1.0 - torch.pow(torch.full_like(count, self.b1), count_inc)
         bc2 = 1.0 - torch.pow(torch.full_like(count, self.b2), count_inc)
         lr = self.schedule(count)
-        apply = ok if self.guard_nan_grads else torch.ones_like(ok)
         i = 0
         for group in self.param_groups:
             step_size = -(lr * group["mult"])
             for p in group["params"]:
                 g = grads[i]
                 i += 1
-                st = self.state[p]
-                if not st:
-                    st["mu"] = torch.zeros_like(p)
-                    st["nu"] = torch.zeros_like(p)
+                st = self._slots(p)
                 mu = (1.0 - self.b1) * g + self.b1 * st["mu"]
                 nu = (1.0 - self.b2) * (g * g) + self.b2 * st["nu"]
                 upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
@@ -122,7 +169,56 @@ class MultiGroupAdam(torch.optim.Optimizer):
                 st["mu"] = torch.where(apply, mu, st["mu"])
                 st["nu"] = torch.where(apply, nu, st["nu"])
         self.count = torch.where(apply, self.count + 1, self.count)
-        self.skipped = torch.where(apply, self.skipped, self.skipped + 1)
+        self.skipped = torch.where(accept, self.skipped, self.skipped + 1)
+
+    # ------------------------------------------------------ checkpoints ----
+    def _named(self) -> list:
+        """``(state_dict name, parameter)`` of every parameter it updates."""
+        return [(n, p) for g in self.param_groups
+                for n, p in zip(g["param_names"], g["params"])]
+
+    def state_dict(self) -> dict:
+        """``{count, skipped, mu, nu}`` as numpy, ``mu``/``nu`` flax trees
+        ``{"params": ...}`` of the parameters it updates (plus ``mini_step``
+        and the running mean ``acc_grads`` when accumulating)."""
+        named = self._named()
+        out = {
+            "count": self.count.cpu().numpy(),
+            "skipped": self.skipped.cpu().numpy(),
+            "mu": state_dict_to_flax({n: self._slots(p)["mu"] for n, p in named}),
+            "nu": state_dict_to_flax({n: self._slots(p)["nu"] for n, p in named}),
+        }
+        if self.accumulate > 1:
+            out["mini_step"] = self.mini_step.cpu().numpy()
+            out["acc_grads"] = state_dict_to_flax({n: self._slots(p)["acc"] for n, p in named})
+        return out
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s output (or
+        ``adam_state_from_optax``'s): every updated parameter's moments must
+        be there; moments of other parameters (a JAX torso checkpoint's
+        frozen head) are ignored."""
+        dev = self.count.device
+        trees = {k: flax_to_state_dict(state[k]) for k in ("mu", "nu")}
+        if self.accumulate > 1:
+            if "acc_grads" not in state:
+                raise ValueError("the checkpoint holds no accumulated gradients "
+                                 f"(accumulate_grad_batches {self.accumulate})")
+            trees["acc"] = flax_to_state_dict(state["acc_grads"])
+        elif "acc_grads" in state:
+            raise ValueError("the checkpoint was written with accumulate_grad_batches > 1")
+        for n, p in self._named():
+            st = self._slots(p)
+            for k, tree in trees.items():
+                if n not in tree:
+                    raise KeyError(f"the optimizer state holds no {k} of {n}")
+                if tuple(tree[n].shape) != tuple(p.shape):
+                    raise ValueError(f"{k} of {n}: {tree[n].shape} != {tuple(p.shape)}")
+                st[k] = torch.as_tensor(np.asarray(tree[n]), dtype=p.dtype).to(dev)
+        self.count = torch.as_tensor(np.asarray(state["count"]), dtype=torch.int32).to(dev)
+        self.skipped = torch.as_tensor(np.asarray(state["skipped"]), dtype=torch.int32).to(dev)
+        self.mini_step = torch.as_tensor(
+            np.asarray(state.get("mini_step", 0)), dtype=torch.int32).to(dev)
 
 
 def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:
@@ -134,15 +230,14 @@ def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGro
 
 def _adam_from_cfg(groups: list, schedule: Callable, cfg) -> MultiGroupAdam:
     """:class:`MultiGroupAdam` with eps 1e-15 and the config's betas,
-    clipping and ``guard_nan_grads``."""
-    if int(cfg.get("accumulate_grad_batches", 1)) > 1:
-        raise NotImplementedError("accumulate_grad_batches > 1 is not ported")
+    clipping, ``guard_nan_grads`` and ``accumulate_grad_batches``."""
     return MultiGroupAdam(
         groups, schedule,
         b1=cfg.get("optimizer_adam_beta1", 0.9), b2=cfg.get("optimizer_adam_beta2", 0.999),
         eps=1e-15, clip_grad_norm=cfg.get("clip_grad_norm", 0),
         clip_grad_value=cfg.get("clip_grad_value", 0),
         guard_nan_grads=cfg.get("guard_nan_grads", True),
+        accumulate_grad_batches=int(cfg.get("accumulate_grad_batches", 1)),
     )
 
 

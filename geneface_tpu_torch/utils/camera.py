@@ -63,15 +63,21 @@ def get_rays(
     W: int,
     n_rays: int = -1,
     rng: np.random.RandomState | None = None,
+    rect=None,  # (xmin, xmax, ymin, ymax): rows xmin..xmax, columns ymin..ymax
 ) -> dict:
-    """Pinhole rays: the full frame (``n_rays < 0``) or ``n_rays`` uniform
-    random pixels drawn from ``rng`` (required then). Returns ``rays_o/rays_d [N, 3]``, pixel
-    indices ``inds`` and pixel-centre coords ``i`` (column) / ``j`` (row).
-    The JAX helper's rect and patch modes serve the lip phase, which the
-    port does not train."""
+    """Pinhole rays: the full frame (``n_rays < 0``), every pixel of
+    ``rect`` in row-major order (``n_rays > 0``; no draw), or ``n_rays``
+    uniform random pixels drawn from ``rng`` (required then). Returns
+    ``rays_o/rays_d [N, 3]``, pixel indices ``inds`` and pixel-centre
+    coords ``i`` (column) / ``j`` (row). The JAX helper's GRAF patch mode
+    is not on any ported path."""
     fx, fy, cx, cy = [float(v) for v in intrinsics]
     pose = np.asarray(pose, np.float32)
-    if n_rays > 0:
+    if n_rays > 0 and rect is not None:
+        xmin, xmax, ymin, ymax = rect
+        gx, gy = np.meshgrid(np.arange(xmin, xmax), np.arange(ymin, ymax), indexing="ij")
+        inds = (gx * W + gy).reshape(-1)
+    elif n_rays > 0:
         inds = rng.randint(0, H * W, min(n_rays, H * W))
     else:
         inds = np.arange(H * W)

@@ -154,6 +154,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rows, upd, err):
         (135168, 6, 262144, "runs"),  # frame scatter, unique rows
         (65536, 16, 324, "smem"),  # torso grid backward, coarse group
         (65536, 112, 5466, "vec"),  # torso grid backward, fine group: no sort
+        (32768, 16, 324, "smem"),  # lip step (4,096 rays), ambient coarse group
+        (32768, 112, 5466, "vec"),  # lip step, ambient fine group
+        (32768, 32, 5832, "vec"),  # lip step, position dense group
+        (32768, 224, 4096, "vec"),  # lip step, position hashed group
+        (32768, 6, 4096, "runs"),  # lip step composite
     ],
 )
 def test_variant_of_the_main_path_shapes(M, W, n_rows, want):

@@ -291,11 +291,15 @@ def test_run_cli_trains_and_checkpoint_renders(synth_dir, tmp_path):
     infer = RADNeRFInfer(full, device="cpu")
     frames = infer.render_frames(1)
     assert frames.shape == (1, 64, 64, 3) and frames.dtype == np.uint8
-    # an existing work dir is refused (resume is not ported), as is an
-    # unported task
-    with pytest.raises(NotImplementedError):
-        main(["--config", str(path), "--exp_name", work, "--device", "cpu"])
+    # a second run on the same work dir resumes from its newest checkpoint
+    # (step 6 = max_updates: nothing is left to train, nothing is rewritten)
+    mtime = os.path.getmtime(os.path.join(work, "model_ckpt_steps_6.ckpt"))
+    assert main(["--config", str(path), "--exp_name", work, "--device", "cpu"]) == 6
+    assert os.path.getmtime(os.path.join(work, "model_ckpt_steps_6.ckpt")) == mtime
+    assert os.path.exists(os.path.join(work, "model_ckpt_best.ckpt"))
+    # an unported task raises, and so does the lip phase without LPIPS
+    # weights (the JAX guard's error)
     with pytest.raises(NotImplementedError):
         resolve_task("geneface_tpu.tasks.lm3d_nerf.Lm3dNeRFTask")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="no LPIPS weights are configured"):
         RADNeRFTask(dict(cfg, finetune_lips=True), device="cpu").build()
