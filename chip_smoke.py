@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's six paths at the full width of
+Drives the port's eight paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, and of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -40,7 +40,19 @@ with random weights from a seeded ``torch.Generator``:
   card vs CPU; then ``Trainer.fit`` to step 4 and a fresh ``Trainer``
   resumed to step 6 on the card, its optimizer state and ``task_step``
   bit-identical to the checkpoint's, with the best checkpoint and each
-  validation's 512² val frame written.
+  validation's 512² val frame written;
+- a GeneFace checkpoint (``import_serve``): a reference-format torso
+  checkpoint authored at full width under the keys of
+  ``egs/datasets/videos/May/lm3d_radnerf_import.yaml`` (16 levels × 2),
+  imported through ``utils/torch_import.py``, then 4 head+torso frames
+  through ``RADNeRFInfer`` (the reference grid, the walk and the padded
+  slab, with the cull) and 4 more under ``grid_backend: block``, each
+  backend's frame held against the CPU plain path, and
+  ``tools/validate_import`` on the checkpoint;
+- its fine-tune (``import_train``): the checkpoint's head imported again,
+  restored into ``RADNeRFTask`` at its step, 20 steps of 65,536 rays under
+  the import config (sweeps at steps 0 and 16), every loss finite, every
+  group's gradient non-zero, one step held against the CPU plain path.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
@@ -59,8 +71,9 @@ ms/step, the sweep's ms, rays/s, the capacities, the device time by stage
 and the idle share of a frame and of a step of each path
 (``torch.profiler``; the tables go to ``smoke_out/``), the losses, one line
 per kernel call site (the variant chosen and every variant's time, the
-bound, the plain version and the library call), and one ``{"kernels":
-[...]}`` JSON line listing every site of the six paths.
+bound, the plain version and the library call; a reference or block grid
+site is named by grid, level and backend), and one ``{"kernels": [...]}``
+JSON line listing every site of the eight paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -248,10 +261,12 @@ def events_ms(fn, iters: int = 20) -> float:
 
 
 #: torch 2.11's profiler on the card keeps no device record of the first
-#: five launches of most windows (the launches it misses are the window's
-#: first five by host order; seen in every kind of window): each window
-#: opens with this many ``torch.cuda._sleep`` launches, left out of its rows
-PAD_LAUNCHES = 8
+#: launches of most windows (the launches it misses are the window's first
+#: by host order; seen in every kind of window): five in most runs, in some
+#: all of eight opening launches and about two more (half of 4,291 windows
+#: of one run on an H100 80GB HBM3 at 700 W): each window opens with this
+#: many ``torch.cuda._sleep`` launches, left out of its rows
+PAD_LAUNCHES = 16
 
 
 def _open_window() -> None:
@@ -319,9 +334,12 @@ def queued_events_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int | None = None) -> float:
     """Mean device time of ``fn()`` (the sum of the kernels, copies and
-    fills it runs, from ``torch.profiler``) over ``iters`` runs.
+    fills it runs, from ``torch.profiler``) over ``iters`` runs: by default
+    20, fewer for a call that takes longer than half a millisecond (about
+    10 ms of calls per window, at least 3; the scatter variants that lose
+    at a 2-wide site run for 3–7 ms).
 
     Each window opens with :func:`_open_window`'s launches, which the
     profiler may drop unseen (``PROFILER["opening_records"]`` counts the
@@ -343,6 +361,11 @@ def device_ms(fn, iters: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
+    if iters is None:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        iters = max(3, min(20, int(0.010 / max(time.perf_counter() - t, 1e-6))))
     time_us, launches, most = (collections.Counter() for _ in range(3))
     for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -379,11 +402,13 @@ def device_ms(fn, iters: int = 20) -> float:
 def _wrapper_patches():
     """(module, attribute, call site kind) of every kernel wrapper the main
     path calls through a module global."""
-    from geneface_tpu_torch.ops import fused_grid, scatter
+    from geneface_tpu_torch.ops import encoders, fused_grid, scatter
 
     return [
         (fused_grid, "launch_gather_rows", "grid_forward"),
         (fused_grid, "launch_scatter_add_rows", "grid_backward"),
+        (encoders, "launch_gather_rows", "gather_rows"),
+        (encoders, "launch_scatter_add_rows", "scatter_add_rows"),
         (scatter, "launch_scatter_add_rows", "scatter_add_rows"),
         (scatter, "launch_gather_rows", "gather_rows"),
     ]
@@ -392,8 +417,11 @@ def _wrapper_patches():
 def capture_calls(run) -> list:
     """``(kind, args, owner)`` of every kernel call that ``run()`` makes, with
     the tensor arguments cloned, in call order. ``owner`` is ``(id(fused
-    grid meta), group)`` for the grid's calls (read from the calling
-    frame of ``ops/fused_grid.py``), else ``None``."""
+    grid meta), group)`` for the fused grid's calls (read from the calling
+    frame of ``ops/fused_grid.py``), else from the calling frame's ``site``:
+    ``("level", id(grid meta), level, backend)`` for the reference and
+    block grids', ``("named", name)`` for the renderer's scatters (and
+    their backward gathers)."""
     import torch
 
     calls = []
@@ -403,7 +431,13 @@ def capture_calls(run) -> list:
     def recorder(real, kind):
         def call(*args):
             caller = sys._getframe(1).f_locals
-            owner = (id(caller["fmeta"]), caller["gi"]) if kind.startswith("grid") else None
+            site = caller.get("site")
+            if kind.startswith("grid"):
+                owner = (id(caller["fmeta"]), caller["gi"])
+            elif isinstance(site, str):  # the renderer's named scatters
+                owner = ("named", site)
+            else:  # a reference or block grid level
+                owner = ("level", id(site[0]), site[1], site[2])
             calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
                           owner))
             return real(*args)
@@ -525,49 +559,65 @@ def measure_gather(table, idx) -> dict:
     def library():
         return padded.float().index_select(0, safe)
 
+    def kernel():
+        return ga.launch_gather_rows(table, idx)
+
+    # the kernel and the library call timed in turns, the median of three each
+    rounds = {"kernel": [], "library": []}
+    for _ in range(3):
+        rounds["kernel"].append(device_ms(kernel))
+        rounds["library"].append(device_ms(library))
     n_bytes = M * 4 + R * W * table.element_size() + M * W * 4
     return {
         "M": M, "W": W, "n_rows": R, "kept_rows": int(keep.sum()), "max_abs_err": err,
         "columns_per_thread": ga.pick_gather_path(
             W, table.element_size(), table.data_ptr(), got.data_ptr()),
-        "ms": median_ms(lambda: ga.launch_gather_rows(table, idx)),
+        "ms": sorted(rounds["kernel"])[1],
         "plain_ms": device_ms(lambda: ga.gather_rows_plain(table, idx)),
-        "library_ms": median_ms(library),
-        "ms_events": events_ms(lambda: ga.launch_gather_rows(table, idx)),
+        "library_ms": sorted(rounds["library"])[1],
+        "ms_events": events_ms(kernel),
         "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
         "ops_ms": 0.0,
     }
 
 
 def grid_names(model) -> dict:
-    """``id(fused grid meta)`` → the grid that owns the tables: ``pos``,
-    ``ambient`` and, for the torso model, ``torso`` (the torso grid's tables
-    have the ambient grid's shapes)."""
-    out = {id(model.pos_fused_meta): "pos", id(model.ambient_fused_meta): "ambient"}
-    if hasattr(model, "torso_fused_meta"):
-        out[id(model.torso_fused_meta)] = "torso"
+    """``id(grid meta)`` (fused, level and block metas) → the grid that owns
+    the tables: ``pos``, ``ambient`` and, for the torso model, ``torso``
+    (the torso grid's tables have the ambient grid's shapes)."""
+    out = {}
+    for name in ("pos", "ambient", "torso"):
+        for kind in ("fused", "grid", "block"):
+            meta = getattr(model, f"{name}_{kind}_meta", None)
+            if meta is not None:
+                out[id(meta)] = name
     return out
 
 
 def name_sites(calls, grids: dict, path: str) -> dict:
     """First captured call of each distinct site of one path → ``{site:
-    (kernel, kind, args)}``; grid sites are named by the grid and group that
-    own the table."""
+    (kernel, kind, args)}``; grid sites are named by the grid and group (or
+    level and backend) that own the table, the renderer's scatters by their
+    label."""
     sites = {}
     for kind, args, owner in calls:
-        if kind == "grid_forward":
+        if owner[0] == "level":  # a reference / block grid level
+            _, meta_id, lvl, backend = owner
+            gather = kind == "gather_rows"
+            step = "forward_gather" if gather else "backward_scatter"
+            site = f"{path}.{grids[meta_id]}.level_{lvl}.{backend}.{step}"
+            kernel = "gather_rows" if gather else "scatter_add_rows"
+        elif kind == "grid_forward":
             site = f"{path}.{grids[owner[0]]}.group_{owner[1]}.forward_gather"
             kernel = "gather_rows"
         elif kind == "grid_backward":
             site = f"{path}.{grids[owner[0]]}.group_{owner[1]}.backward_scatter"
             kernel = "scatter_add_rows"
         elif kind == "scatter_add_rows":
-            rows, upd, n_rows = args
-            first = f"{path}.composite_sums" not in sites
-            site = f"{path}.composite_sums" if first else f"{path}.frame_scatter"
+            site = f"{path}.{owner[1]}"
             kernel = "scatter_add_rows"
         else:
-            site = f"{path}.composite_sums.backward_gather"
+            site = f"{path}.{owner[1]}.backward_gather"
             kernel = "gather_rows"
         sites.setdefault(site, (kernel, kind, args))
     return sites
@@ -594,6 +644,10 @@ def measure_sites(sites: dict, per_call: dict) -> list:
     wrong = [w for w in (misdispatched(m) for m in out if "variants" in m) if w]
     if wrong:
         raise AssertionError("the dispatcher's table is wrong: " + "; ".join(wrong))
+    behind = [f"{m['site']} {m['ms']:.4f} ms vs {m['library_ms']:.4f}" for m in out
+              if m["ms"] > 1.1 * m["library_ms"] and m["ms"] - m["library_ms"] > 0.002]
+    print(f"sites behind their library call by more than 10% and 2 µs: {len(behind)} "
+          + json.dumps(behind))
     return out
 
 
@@ -701,9 +755,14 @@ def fmt_ms(x, unit: str = "") -> str:
 
 
 def n_grid_groups(model) -> tuple:
-    """(head groups, torso groups) of the fused grids."""
-    head = len(model.pos_fused_meta.groups) + len(model.ambient_fused_meta.groups)
-    torso = len(model.torso_fused_meta.groups) if hasattr(model, "torso_fused_meta") else 0
+    """(head, torso) row gathers of one grid encode: the fused grids' groups,
+    or the levels of the reference and block grids."""
+    if model.grid_backend == "fused":
+        head = len(model.pos_fused_meta.groups) + len(model.ambient_fused_meta.groups)
+        torso = len(model.torso_fused_meta.groups) if hasattr(model, "torso_fused_meta") else 0
+    else:
+        head = model.pos_grid_meta.num_levels + model.ambient_grid_meta.num_levels
+        torso = model.torso_grid_meta.num_levels if hasattr(model, "torso_grid_meta") else 0
     return head, torso
 
 
@@ -731,10 +790,12 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
 
     if frames.shape != (RENDER_FRAMES, HW, HW, 3) or frames.dtype != np.uint8:
         raise AssertionError(f"{path}: frames {frames.shape} {frames.dtype}")
-    # per frame: the composite sums and (with the ray cull) the frame
-    # scatter (K1), one row gather per grid group of the head and the torso
-    # (K8)
-    per_frame = 2 if infer.ray_capacity else 1
+    # per frame: the composite sums (the compact path; the padded slab's
+    # composite is no scatter) and, with the ray cull, the frame scatter
+    # (K1); one row gather per grid group (fused) or level of the head and
+    # the torso (K8)
+    compact = bool(infer.render_kwargs["mean_samples_per_ray"])
+    per_frame = int(compact) + int(bool(infer.ray_capacity))
     want = {"scatter_add_rows": per_frame * RENDER_FRAMES,
             "gather_rows": sum(n_grid_groups(infer.model)) * RENDER_FRAMES}
     if launches != want:
@@ -769,13 +830,15 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - ts) * 1e3)
     C = infer.ray_capacity or HW * HW
-    Mc = -(-C * int(cfg["mean_samples_per_ray"]) // 1024) * 1024
+    # the compact path's sample capacity, or the padded slab's every slot
+    Mc = (-(-C * int(cfg["mean_samples_per_ray"]) // 1024) * 1024 if compact
+          else C * infer.render_kwargs["max_steps"])
     n_samples = last["n_samples"].float()
     print(f"{path}: ms/frame {wall / RENDER_FRAMES * 1e3:.3f} (render_frames of "
           f"{RENDER_FRAMES}, per-video set-up included); steady render_frame "
           f"median {sorted(times)[2]:.3f} ms")
-    print(f"{path}: ray capacity C={C}, sample capacity Mc={Mc}, mean samples/ray "
-          f"{float(n_samples.mean()):.3f} over the C rendered rays "
+    print(f"{path}: ray capacity C={C}, {'sample capacity' if compact else 'padded slab'} "
+          f"Mc={Mc}, mean samples/ray {float(n_samples.mean()):.3f} over the C rendered rays "
           f"(hit rays: {int((n_samples > 0).sum())})")
 
     # frame vs the port's plain CPU path (same checkpoint, same dtype)
@@ -1128,7 +1191,18 @@ def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> d
     L2), at times past the 0.1 bound. So the CPU side looks the torso grid
     up at the card's ``Δxy`` (its values from the card, the gradient
     through the CPU's own deform net), and ``Δxy`` itself is held card vs
-    CPU: max abs error <= 1e-4 of its largest magnitude."""
+    CPU: max abs error <= 1e-4 of its largest magnitude.
+
+    The ambient grid is looked up at the ambient MLP's output, which card
+    and CPU round apart in the last bit as well, and the fused layout's
+    grouped levels jump at block edges: with each side's own ambient
+    coordinates a lip step's attention-conv bias read 0.20 (relative L2,
+    a cancelling sum of one scalar) and the position grid's hash group
+    2.8e-2 in one call on an H100 80GB HBM3 at 700 W, where earlier calls
+    read 4e-5. So the CPU side looks the ambient grid up at the card's
+    ambient logits in the same way (the card's values, the gradient through
+    the CPU's own ambient MLP), and the logits are held card vs CPU: max
+    abs error <= 1e-4 of their largest magnitude."""
     import torch
 
     from geneface_tpu_torch.models.radnerf import OccupancyState
@@ -1149,11 +1223,24 @@ def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> d
 
         return hook
 
+    ambient = {"cuda": [], "cpu": []}
+
+    def same_ambient(dev):
+        def hook(module, inputs, logits):
+            ambient[dev].append([x.detach().cpu() for x in logits])
+            if dev == "cpu":  # the card's values of the same call, the CPU's gradient
+                card = ambient["cuda"][len(ambient["cpu"]) - 1]
+                return tuple(c + (x - x.detach()) for c, x in zip(card, logits))
+            return None
+
+        return hook
+
     out = {}
     for dev in ("cuda", "cpu"):
         t = type(task)(task.cfg, device=dev, dtype=torch.float32)
         t.build()
         t.model.load_state_dict(params)
+        t.model.ambient_net.register_forward_hook(same_ambient(dev))
         t.set_occupancy(OccupancyState(*[x.to(t.device) for x in occ]))
         if hasattr(task, "torso_occ"):
             t.torso_occ = type(task.torso_occ)(*[x.to(t.device) for x in task.torso_occ])
@@ -1190,6 +1277,14 @@ def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> d
            "mean_samples": sg, "worst_grad_rel_l2": max(errs.values()),
            "worst_grad": max(errs, key=errs.get), "rays_max_abs_err": ray_err,
            "n_params_with_grad": len(gc)}
+    if len(ambient["cpu"]) != len(ambient["cuda"]) or not ambient["cpu"]:
+        raise AssertionError(f"{path}: ambient MLP calls {len(ambient['cuda'])} on the card, "
+                             f"{len(ambient['cpu'])} on the CPU")
+    pairs = [(g, c) for gs, cs in zip(ambient["cuda"], ambient["cpu"]) for g, c in zip(gs, cs)]
+    res["ambient_max_abs_err"] = max(float((g - c).abs().max()) for g, c in pairs)
+    res["ambient_max_abs"] = max(float(c.abs().max()) for _, c in pairs)
+    if not res["ambient_max_abs_err"] <= 1e-4 * res["ambient_max_abs"]:
+        raise AssertionError(f"{path}: ambient logits card vs CPU: {res}")
     if deform:
         scale = float(deform["cpu"].abs().max())
         res["deform_max_abs_err"] = float((deform["cuda"] - deform["cpu"]).abs().max())
@@ -1591,6 +1686,200 @@ def profile_train_step(task, batch, out_dir: str, wall_ms: float, path: str = "t
             "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:15]]}
 
 
+#: the import cells: the keys of egs/datasets/videos/May/lm3d_radnerf_import.yaml
+IMPORT_KEYS = dict(grid_num_levels=16, grid_level_dim=2, grid_backend="reference",
+                   march_backend="walk", mean_samples_per_ray=0)
+#: the step of the authored GeneFace checkpoint (a whole GeneFace head run)
+IMPORT_STEP = 250000
+#: the spread of the authored grids (100× the init's): the field depends on
+#: them, and the block layout's jumps at its capped cells stay far below the
+#: frame check's 1e-3
+IMPORT_GRID_SPREAD = 0.01
+
+
+def import_cfg(cfg: dict) -> dict:
+    """The import cell: the full-width head+torso config under the keys of
+    ``lm3d_radnerf_import.yaml``, its work dir the imported checkpoint's."""
+    root = os.path.dirname(cfg["work_dir"])
+    return dict(torso_cfg(cfg), **IMPORT_KEYS, work_dir=os.path.join(root, "work_import"),
+                head_model_dir="")
+
+
+def author_geneface_checkpoint(cfg: dict, path: str, seed: int = 3) -> str:
+    """A GeneFace-format torso checkpoint (``{"state_dict": {"model": ...}}``,
+    the reference's key names, ``torch.save``) at the config's full width,
+    from seeded weights: grids uniform in ±``IMPORT_GRID_SPREAD``, the
+    ``density_grid`` of the phase's planted ball and the planted
+    ``density_grid_torso``; → the ``.ckpt`` path."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.models.radnerf import model_from_cfg
+    from geneface_tpu_torch.utils.torch_import import reference_state_dict
+
+    model = model_from_cfg(cfg, torso=True)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    sd = reference_state_dict(model)
+    rng = np.random.RandomState(seed)
+    for k in sd:
+        if k.endswith("embedder.embeddings"):
+            sd[k] = rng.uniform(-IMPORT_GRID_SPREAD, IMPORT_GRID_SPREAD,
+                                sd[k].shape).astype(np.float32)
+    sd["density_grid"] = planted_occupancy(cfg["grid_size"], cfg["density_thresh"])[0][0]
+    sd["density_grid_torso"] = planted_torso_occupancy(cfg["grid_size"])[0]
+    os.makedirs(path, exist_ok=True)
+    out = os.path.join(path, f"model_ckpt_steps_{IMPORT_STEP}.ckpt")
+    torch.save({"state_dict": {"model": {k: torch.from_numpy(v) for k, v in sd.items()}}}, out)
+    return out
+
+
+def import_serve_phase(cfg, out_dir: str, path: str = "import_serve") -> tuple:
+    """A GeneFace user's first frame: a reference-format torso checkpoint
+    authored at full width (:func:`author_geneface_checkpoint`), imported
+    through ``utils/torch_import.py`` into a checkpoint of the port, then
+    ``RADNeRFInfer`` under ``lm3d_radnerf_import.yaml``'s keys (the
+    reference grid, the walk and the padded slab, with the cull): 4 frames
+    counted and the steady frame; the same under ``grid_backend: block``;
+    ``python -m geneface_tpu_torch.tools.validate_import`` on the
+    checkpoint; each backend's frame held against the CPU plain path
+    (:func:`serve_phase` for each backend); → (record, launches, sites)."""
+    from geneface_tpu_torch.tools.validate_import import main as validate_main
+    from geneface_tpu_torch.utils.torch_import import import_radnerf_checkpoint
+
+    src_dir = os.path.join(os.path.dirname(cfg["work_dir"]), "geneface")
+    t = time.perf_counter()
+    src = author_geneface_checkpoint(cfg, src_dir)
+    dst = import_radnerf_checkpoint(src_dir, cfg, cfg["work_dir"])
+    import_s = time.perf_counter() - t
+    print(f"{path}: authored {os.path.basename(src)} ({os.path.getsize(src) / 2**20:.1f} MiB) "
+          f"and imported it as {os.path.relpath(dst, REPO)} in {import_s:.2f} s")
+    record = {"import_s": import_s}
+    launches = {"scatter_add_rows": 0, "gather_rows": 0}
+    sites = {}
+    for backend in ("reference", "block"):
+        sub = path if backend == "reference" else f"{path}_block"
+        record[backend], counted, found = serve_phase(dict(cfg, grid_backend=backend),
+                                                      out_dir, sub)
+        for k in launches:
+            launches[k] += counted[k]
+        sites.update(found)
+    report = os.path.join(out_dir, f"{path}_validate_report.json")
+    t = time.perf_counter()
+    rc = validate_main(["--ckpt", src_dir, "--data_dir", cfg["data_dir"], "--frames", "1",
+                        "--out", report] + _config_args(cfg, out_dir, path))
+    with open(report) as f:
+        rep = json.load(f)
+    record["validate_import"] = dict(rep, s=time.perf_counter() - t)
+    print(f"{path}: validate_import rc {rc} in {record['validate_import']['s']:.1f} s: "
+          + json.dumps(rep["frames"]))
+    if rc != 0 or not rep["pass"] or not rep["torso"]:
+        raise AssertionError(f"{path}: validate_import failed: {rep}")
+    return record, launches, sites
+
+
+def _config_args(cfg: dict, out_dir: str, path: str) -> list:
+    """``--config`` of a YAML holding ``cfg``'s model keys (the tool reads a
+    config file)."""
+    import yaml
+
+    yml = os.path.join(out_dir, f"{path}_config.yaml")
+    with open(yml, "w") as f:
+        yaml.safe_dump({k: v for k, v in cfg.items() if k not in ("data_dir", "work_dir")}, f)
+    return ["--config", yml]
+
+
+def import_train_phase(cfg, out_dir: str, path: str = "import_train") -> tuple:
+    """The fine-tune of an imported GeneFace head: the head of the
+    checkpoint that :func:`import_serve_phase` authored, imported again as a
+    head, restored into ``RADNeRFTask`` under ``lm3d_radnerf_import.yaml``'s
+    keys (the reference grid, the walk, the padded slab) at step
+    ``IMPORT_STEP``, then ``TRAIN_STEPS`` steps of 65,536 rays (sweeps at
+    steps 0 and 16), every loss finite, every group's gradient non-zero,
+    one step held against the CPU plain path; → (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.training.optim import param_groups, radnerf_label_fn
+    from geneface_tpu_torch.utils.checkpoint import load_checkpoint
+    from geneface_tpu_torch.utils.torch_import import import_radnerf_checkpoint
+
+    tcfg = dict(train_cfg(cfg), work_dir=os.path.join(os.path.dirname(cfg["work_dir"]),
+                                                      "work_import_head"))
+    src_dir = os.path.join(os.path.dirname(cfg["work_dir"]), "geneface")
+    if not os.path.isdir(src_dir):  # without import_serve before it
+        author_geneface_checkpoint(cfg, src_dir)
+    ckpt = import_radnerf_checkpoint(src_dir, tcfg, tcfg["work_dir"], torso=False)
+    task = RADNeRFTask(tcfg)  # cuda, bf16 MLPs
+    task.build()
+    task.restore_state(load_checkpoint(ckpt)["state"])
+    task._step = IMPORT_STEP  # the fine-tune resumes at the checkpoint's step
+    rk = task.render_kwargs()
+    if rk["lattice_K"] is not None or rk["mean_samples_per_ray"]:
+        raise AssertionError(f"{path}: not the walk and the padded slab: {rk}")
+    batches = task.train_batches(IMPORT_STEP)
+    interval = int(task.cfg["update_extra_interval"])
+    n_head, _ = n_grid_groups(task.model)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    step_ms, losses, spr, sweeps = [], [], [], []
+    for i in range(TRAIN_STEPS):
+        batch = next(batches)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = task.train_step(batch)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(out["total_loss"]))
+        spr.append(float(out["mean_samples"]))
+        if out["occupancy_sweep"]:
+            sweeps.append(i)
+    launches = dict(LAUNCHES)
+    # per step one gather (forward) and one scatter (backward) per grid
+    # level; per sweep one gather per level and chunk (16 chunks)
+    want = {"gather_rows": TRAIN_STEPS * n_head + len(sweeps) * 16 * n_head,
+            "scatter_add_rows": TRAIN_STEPS * n_head}
+    if launches != want or sweeps != list(range(0, TRAIN_STEPS, interval)):
+        raise AssertionError(f"{path} launches {launches}, expected {want}; sweeps {sweeps}")
+    print(f"{path}: losses " + json.dumps([round(x, 6) for x in losses]))
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{path}: non-finite training loss")
+    nonzero = {g["name"]: sum(int(p.grad is not None and bool((p.grad != 0).any()))
+                              for p in g["params"])
+               for g in param_groups(task.model, radnerf_label_fn,
+                                     {"net": 1, "grid": 1, "att": 1})}
+    if not all(nonzero.values()):
+        raise AssertionError(f"{path}: a parameter group has a zero gradient: {nonzero}")
+    plain = [t for i, t in enumerate(step_ms) if i not in sweeps and i > 1]
+    median = sorted(plain)[len(plain) // 2]
+    print(f"{path}: median ms/step {median:.3f} (steps without a sweep, first two left "
+          f"out); sweep steps {[round(step_ms[i], 3) for i in sweeps]} ms; "
+          f"{TRAIN_RAYS / median * 1e3:.0f} rays/s; samples/ray per step (walk, slab of "
+          f"{task.cfg['max_steps']}) " + json.dumps([round(x, 3) for x in spr])
+          + f"; non-zero gradients by group {nonzero}")
+    record = {"step_ms": step_ms, "median_step_ms": median, "losses": losses,
+              "mean_samples_per_ray": spr, "rays_per_s": TRAIN_RAYS / median * 1e3,
+              "nonzero_grad_params": nonzero}
+    prof = profile_train_step(task, next(batches), out_dir, median, path)
+    print(f"{path}: step device time {fmt_ms(prof['device_busy_ms'], ' ms')} of "
+          f"{prof['wall_ms']:.3f} ms wall (idle share {fmt_ms(prof['idle_share'])}, "
+          f"{prof['n_device_ops']} device operations); stage spans ms "
+          + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
+    sweep = sweep_ms(task)
+    print(f"{path}: sweep alone {sweep:.3f} ms (CUDA events, one unprofiled sweep)")
+    record.update(profile=prof, sweep_ms=sweep,
+                  grad_check=check_grads_vs_cpu(task, next(batches), path))
+    grids = grid_names(task.model)
+    sites = name_sites(capture_calls(lambda: task.train_step(next(batches))), grids, path)
+    saved_step = task._step
+    task._step = interval * (saved_step // interval + 1)
+    sites.update(name_sites(capture_calls(task.maybe_update_occ), grids, "import_sweep"))
+    task._step = saved_step
+    record["sweep_launches_per_site"] = 16
+    return record, launches, sites
+
+
 def main() -> int:
     import torch
 
@@ -1626,7 +1915,9 @@ def main() -> int:
                   ("torso_serve", serve_phase, torso_cfg(cfg)),
                   ("torso_train", train_phase, torso_cfg(cfg)),
                   ("audio_serve", audio_serve_phase, torso_cfg(cfg)),
-                  ("train_lip", train_lip_phase, cfg)]
+                  ("train_lip", train_lip_phase, cfg),
+                  ("import_serve", import_serve_phase, import_cfg(cfg)),
+                  ("import_train", import_train_phase, import_cfg(cfg))]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

@@ -3,7 +3,9 @@
 The JAX checkpoints hold ``{"params": {...}}`` trees of the flax RAD-NeRF.
 The mapping, module by module:
 
-- grid tables ``{pos,ambient,torso}_embeddings/group_<i>`` are kept as
+- grid tables ``{pos,ambient,torso}_embeddings/group_<i>`` (the fused
+  layout) and ``{pos,ambient,torso}_embeddings`` (the canonical
+  ``[n_entries, C]`` table of the reference and block layouts) are kept as
   they are;
 - ``Conv1dK3_<j>``: kernel ``[3, Cin, Cout]`` → ``convs.<j>.weight``
   ``[Cout, Cin, 3]`` (``Conv1d`` layout), bias as it is;
@@ -83,7 +85,7 @@ def flax_to_state_dict(params: dict) -> dict:
     for path, v in _flatten(tree).items():
         top = path[0]
         if top in _GRIDS:
-            sd[f"{top}.{path[1]}"] = v
+            sd[".".join(path)] = v
         elif top in _CODES:
             sd[top] = v
         elif re.fullmatch(r"head_aware_mlps_\d+", top):
@@ -119,7 +121,7 @@ def flax_path(name: str) -> tuple:
     parts = name.split(".")
     top = parts[0]
     if top in _GRIDS:
-        return (top, parts[1])
+        return tuple(parts)
     if top in _CODES:
         return (top,)
     if top == "head_aware_mlps":

@@ -6,8 +6,10 @@ state holds ``torso_occ`` is a torso checkpoint), build the per-video
 constants once — the 13-slab k-DOP of the occupied cells, the ray capacity
 probed from a few dataset poses, the packed occupancy blocks, the dense
 grid views and, for the torso, its occupancy mask over the screen — then
-render every frame through the culled compact renderer, and the torso
-under the head over the plain background.
+render every frame through the culled renderer (the lattice march and the
+compaction, or under ``mean_samples_per_ray: 0`` — the GeneFace import
+config's — the walk and the padded slab), and the torso under the head over
+the plain background. The grids run in the config's ``grid_backend``.
 :meth:`RADNeRFInfer.render_frames` returns uint8 frames;
 :meth:`RADNeRFInfer.render_video` muxes them with :func:`save_mp4`.
 """
@@ -112,21 +114,19 @@ class RADNeRFInfer:
             f"{cfg.get('binary_data_dir', 'data/binary/videos')}/{cfg.get('video_id', '')}"
         )
         self.dataset = RADNeRFDataset("trainval", data_dir, cfg)
+        # 0 for either: the walk (with compaction while mean_samples_per_ray
+        # is set, else the padded slab), as the JAX renderer dispatches
         mspr = float(cfg.get("infer_mean_samples_per_ray", cfg.get("mean_samples_per_ray", 8)) or 0)
         lattice_K = int(cfg.get("infer_lattice_K", cfg.get("lattice_K", 48)) or 0)
-        if not mspr or not lattice_K:
-            raise NotImplementedError(
-                "the port renders through the lattice march + compact path only "
-                "(mean_samples_per_ray > 0 and lattice_K > 0)"
-            )
         self.render_kwargs = dict(
             bound=float(cfg.get("bound", 1)),
             min_near=float(cfg.get("min_near", 0.05)),
+            dt_gamma=float(cfg.get("dt_gamma", 1.0 / 256)),
             max_steps=int(cfg.get("max_steps", 16)),
             T_thresh=float(cfg.get("infer_T_thresh", 1e-4)),
             grid_size=int(cfg.get("grid_size", 128)),
-            mean_samples_per_ray=mspr,
-            lattice_K=lattice_K,
+            mean_samples_per_ray=mspr or None,
+            lattice_K=lattice_K or None,
         )
         self.ray_capacity = None
         self.cull_kdop = None

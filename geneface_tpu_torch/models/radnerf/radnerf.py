@@ -1,5 +1,4 @@
-"""RAD-NeRF field (port of ``geneface_tpu/models/radnerf/radnerf.py``, fused
-grid backend).
+"""RAD-NeRF field (port of ``geneface_tpu/models/radnerf/radnerf.py``).
 
 A 3-D multi-resolution grid encodes the position; an ambient MLP maps
 (position feature, condition feature) to 2-D ambient coordinates (tanh) that
@@ -7,6 +6,12 @@ index a second, 2-D grid; a sigma MLP gives density (``trunc_exp``) and a
 geometry feature; a color MLP takes SH-4 directions, the geometry feature and
 a per-frame individual code. Parameter names and shapes follow the JAX
 parameter tree through :mod:`geneface_tpu_torch.convert`.
+
+``grid_backend`` picks the grids' layout: ``fused`` (grouped tables, a
+``ParameterDict`` of groups), or ``reference`` / ``block``, which share the
+canonical ``[n_entries, C]`` table of the reference ``gridencoder`` (so a
+checkpoint runs unchanged under either; an imported GeneFace checkpoint
+needs one of them).
 """
 
 from __future__ import annotations
@@ -25,9 +30,13 @@ from geneface_tpu_torch.ops import (
     sh_encode,
     trunc_exp,
 )
+from geneface_tpu_torch.ops.encoders import fast_grid_encode, grid_encode, make_block_grid_meta
 from geneface_tpu_torch.ops.fused_grid import table_shape
 
-__all__ = ["RADNeRF", "COND_IN_DIMS"]
+__all__ = ["RADNeRF", "COND_IN_DIMS", "GRID_BACKENDS"]
+
+#: the grid layouts the port runs
+GRID_BACKENDS = ("fused", "reference", "block")
 
 COND_IN_DIMS = {
     "esperanto": 44,
@@ -76,10 +85,8 @@ class RADNeRF(nn.Module):
         grid_compute_dtype: str = "f32",
     ):
         super().__init__()
-        if grid_backend != "fused":
-            raise NotImplementedError(
-                f"grid_backend={grid_backend!r}: the port has the fused backend only"
-            )
+        if grid_backend not in GRID_BACKENDS:
+            raise ValueError(f"grid_backend={grid_backend!r}: one of {GRID_BACKENDS}")
         if grid_compute_dtype != "f32":
             raise NotImplementedError(
                 f"grid_compute_dtype={grid_compute_dtype!r}: the port computes grids in f32"
@@ -88,6 +95,7 @@ class RADNeRF(nn.Module):
         self.with_att = with_att
         self.sh_degree = sh_degree
         self.dtype = dtype
+        self.grid_backend = grid_backend
         gridtype = {"tiledgrid": "tiled", "hashgrid": "hash"}[grid_type]
         # equal parameter budget across level geometries: the hashmap cap is
         # scaled so that capped levels hold the reference's L=16/C=2 bytes
@@ -106,6 +114,9 @@ class RADNeRF(nn.Module):
         amb_meta = make_grid_meta(
             input_dim=ambient_out_dim, desired_resolution=desired_resolution, **common
         )
+        self.pos_grid_meta, self.ambient_grid_meta = pos_meta, amb_meta
+        self.pos_block_meta = make_block_grid_meta(pos_meta)
+        self.ambient_block_meta = make_block_grid_meta(amb_meta)
         amb_ungroup = fused_ungroup_coarse if ambient_ungroup_coarse < 0 else ambient_ungroup_coarse
         self.pos_fused_meta = make_fused_grid_meta(
             pos_meta, single_table=fused_single_table, row_lanes=fused_row_lanes,
@@ -116,8 +127,8 @@ class RADNeRF(nn.Module):
             row_lanes=fused_row_lanes, ungroup_coarse=amb_ungroup,
             coarse_run=fused_coarse_run,
         )
-        self.pos_embeddings = self._grid_params(self.pos_fused_meta)
-        self.ambient_embeddings = self._grid_params(self.ambient_fused_meta)
+        self.pos_embeddings = self._grid_params(pos_meta, self.pos_fused_meta)
+        self.ambient_embeddings = self._grid_params(amb_meta, self.ambient_fused_meta)
         self.cond_prenet = AudioNet(COND_IN_DIMS[cond_type], cond_out_dim, cond_win_size)
         if with_att:
             self.cond_att_net = AudioAttNet(cond_out_dim, smo_win_size)
@@ -141,14 +152,21 @@ class RADNeRF(nn.Module):
         else:
             self.individual_embeddings = None
 
-    @staticmethod
-    def _grid_params(fmeta) -> nn.ParameterDict:
+    def _grid_params(self, meta, fmeta):
+        """The grid's parameters: the fused groups, or the canonical table."""
+        if self.grid_backend != "fused":
+            return nn.Parameter(torch.zeros(meta.n_entries, meta.level_dim))
         return nn.ParameterDict(
             {
                 f"group_{gi}": nn.Parameter(torch.zeros(table_shape(fmeta, gi)))
                 for gi in range(len(fmeta.groups))
             }
         )
+
+    @staticmethod
+    def grid_tensors(grid) -> list:
+        """The tables of one grid's parameters (fused groups or canonical)."""
+        return list(grid.values()) if isinstance(grid, nn.ParameterDict) else [grid]
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -159,7 +177,8 @@ class RADNeRF(nn.Module):
         def normal(t, std):
             t.copy_(torch.randn(t.shape, generator=generator) * std)
 
-        for table in list(self.pos_embeddings.values()) + list(self.ambient_embeddings.values()):
+        for table in self.grid_tensors(self.pos_embeddings) + self.grid_tensors(
+                self.ambient_embeddings):
             table.copy_((torch.rand(table.shape, generator=generator) * 2 - 1) * 1e-4)
         for m in self.modules():
             if isinstance(m, (nn.Linear, nn.Conv1d)):
@@ -179,32 +198,52 @@ class RADNeRF(nn.Module):
         return feat
 
     # -- field queries -------------------------------------------------------
+    def _grid_view(self, params, fmeta):
+        """One grid's tables as the encoder reads them: the fused groups'
+        fast views (dense groups expanded by :func:`dense_view`), or the
+        canonical table itself."""
+        if self.grid_backend != "fused":
+            return params
+        return [
+            dense_view(params[f"group_{gi}"], fmeta, gi)
+            if fmeta.modes[gi] == "dense"
+            else params[f"group_{gi}"]
+            for gi in range(len(fmeta.groups))
+        ]
+
     def grid_tables(self) -> dict:
-        """Fast-view tables of both grids (dense groups expanded by
-        :func:`dense_view`); a per-checkpoint constant."""
-        out = {}
-        for key, params, fmeta in (
-            ("pos", self.pos_embeddings, self.pos_fused_meta),
-            ("ambient", self.ambient_embeddings, self.ambient_fused_meta),
-        ):
-            out[key] = [
-                dense_view(params[f"group_{gi}"], fmeta, gi)
-                if fmeta.modes[gi] == "dense"
-                else params[f"group_{gi}"]
-                for gi in range(len(fmeta.groups))
-            ]
-        return out
+        """The tables of both grids as the encoder reads them; a
+        per-checkpoint constant."""
+        return {
+            "pos": self._grid_view(self.pos_embeddings, self.pos_fused_meta),
+            "ambient": self._grid_view(self.ambient_embeddings, self.ambient_fused_meta),
+        }
+
+    def _encode_grid(self, x01, tables, meta, bmeta, fmeta, input_grad: bool = True):
+        """The backend's encoder of one grid → ``[M, L*C]`` float32."""
+        if self.grid_backend == "fused":
+            return fused_grid_encode(x01, tables, fmeta, need_input_grad=input_grad)
+        if self.grid_backend == "block":
+            return fast_grid_encode(x01, tables, bmeta)
+        return grid_encode(x01, tables, meta)
 
     def _ambient_and_pos(self, position, cond_feat, tables):
         x01 = (position + self.bound) / (2 * self.bound)
         # the samples come from stop-gradient rays: no position input grads
-        pos_feat = fused_grid_encode(
-            x01, tables["pos"], self.pos_fused_meta, need_input_grad=False
+        pos_feat = self._encode_grid(
+            x01, tables["pos"], self.pos_grid_meta, self.pos_block_meta,
+            self.pos_fused_meta, input_grad=False,
         )
         logits = self.ambient_net([pos_feat, cond_feat.reshape(1, -1)])
         tanhs = [torch.tanh(l.float()) for l in logits]
-        amb01 = tuple((t + 1.0) / 2.0 for t in tanhs)
-        ambient_feat = fused_grid_encode(amb01, tables["ambient"], self.ambient_fused_meta)
+        if self.grid_backend == "fused":
+            amb01 = tuple((t + 1.0) / 2.0 for t in tanhs)
+        else:
+            amb01 = (torch.stack(tanhs, dim=-1) + 1.0) / 2.0  # [M, 2]
+        ambient_feat = self._encode_grid(
+            amb01, tables["ambient"], self.ambient_grid_meta, self.ambient_block_meta,
+            self.ambient_fused_meta,
+        )
         return pos_feat, ambient_feat, torch.stack(tanhs, dim=-1)
 
     def density(self, position, cond_feat, tables=None) -> dict:

@@ -7,10 +7,11 @@ optionally, an encoding of the rendered head's colour and alpha feed a
 deform MLP; its offset moves the coordinate into a tiled 2-D grid whose
 feature, with the same inputs, feeds a canonical MLP → (alpha, RGB).
 
-The torso grid's geometry is fixed whatever the head's: 8×4 levels of the
-head config, hashmap cap ``16 − round(log2(C/2))``, finest resolution 2048,
-tiled, with the fused layout's default grouping (its ``ungroup_coarse`` is
-not the head's). The torso MLPs compute in float32 even when the head's
+The torso grid's geometry follows the head's levels: ``grid_num_levels`` ×
+``grid_level_dim`` of the config, hashmap cap ``16 − round(log2(C/2))``,
+finest resolution 2048, tiled, linear, in the head's ``grid_backend`` (with
+the fused layout's default grouping: its ``ungroup_coarse`` is not the
+head's). The torso MLPs compute in float32 even when the head's
 compute in bf16, as the JAX ``MLP``'s default dtype does.
 """
 
@@ -24,13 +25,12 @@ import torch.nn as nn
 from geneface_tpu_torch.models.radnerf.cond_encoder import MLP
 from geneface_tpu_torch.models.radnerf.radnerf import RADNeRF
 from geneface_tpu_torch.ops import (
-    dense_view,
     freq_encode,
     freq_encode_output_dim,
-    fused_grid_encode,
     make_fused_grid_meta,
     make_grid_meta,
 )
+from geneface_tpu_torch.ops.encoders import make_block_grid_meta
 
 __all__ = ["RADNeRFTorso", "sample_torso_occupancy"]
 
@@ -63,10 +63,12 @@ class RADNeRFTorso(RADNeRF):
             desired_resolution=2048,
             gridtype="tiled",
         )
+        self.torso_grid_meta = torso_meta
+        self.torso_block_meta = make_block_grid_meta(torso_meta)
         self.torso_fused_meta = make_fused_grid_meta(
             torso_meta, row_lanes=head_kwargs.get("fused_row_lanes", 256)
         )
-        self.torso_embeddings = self._grid_params(self.torso_fused_meta)
+        self.torso_embeddings = self._grid_params(torso_meta, self.torso_fused_meta)
         if torso_individual_embedding_dim > 0:
             self.torso_individual_codes = nn.Parameter(torch.zeros(
                 head_kwargs.get("individual_embedding_num", 13000), torso_individual_embedding_dim
@@ -91,21 +93,16 @@ class RADNeRFTorso(RADNeRF):
         head-aware layers: lecun-normal weights, zero biases), then the torso
         grid U(-1e-4, 1e-4) and the torso codes 0.1·N(0, 1)."""
         super().reset_parameters(generator)
-        for table in self.torso_embeddings.values():
+        for table in self.grid_tensors(self.torso_embeddings):
             table.copy_((torch.rand(table.shape, generator=generator) * 2 - 1) * 1e-4)
         if self.torso_individual_codes is not None:
             codes = self.torso_individual_codes
             codes.copy_(torch.randn(codes.shape, generator=generator) * 0.1)
 
-    def torso_grid_tables(self) -> list:
-        """Fast-view tables of the torso grid (see :meth:`grid_tables`)."""
-        fmeta = self.torso_fused_meta
-        return [
-            dense_view(self.torso_embeddings[f"group_{gi}"], fmeta, gi)
-            if fmeta.modes[gi] == "dense"
-            else self.torso_embeddings[f"group_{gi}"]
-            for gi in range(len(fmeta.groups))
-        ]
+    def torso_grid_tables(self):
+        """The torso grid's tables as the encoder reads them (see
+        :meth:`grid_tables`)."""
+        return self._grid_view(self.torso_embeddings, self.torso_fused_meta)
 
     def forward_torso(
         self,
@@ -114,7 +111,7 @@ class RADNeRFTorso(RADNeRF):
         ind_code: torch.Tensor | None,  # [torso_ind_dim]
         head_image: torch.Tensor | None = None,  # [N, 3]
         head_weights_sum: torch.Tensor | None = None,  # [N, 1]
-        tables: list | None = None,  # from torso_grid_tables(); built here if None
+        tables=None,  # from torso_grid_tables(); built here if None
     ):
         """→ (alpha [N, 1], color [N, 3], deform Δxy [N, 2]), float32."""
         N = x.shape[0]
@@ -139,7 +136,10 @@ class RADNeRFTorso(RADNeRF):
         dx = self.torso_deform_net(h)
         x_def = (x + dx).clamp(-1.0, 1.0)
         tables = tables if tables is not None else self.torso_grid_tables()
-        grid_feat = fused_grid_encode((x_def + 1.0) / 2.0, tables, self.torso_fused_meta)
+        grid_feat = self._encode_grid(
+            (x_def + 1.0) / 2.0, tables, self.torso_grid_meta, self.torso_block_meta,
+            self.torso_fused_meta,
+        )
         out = self.torso_canonical_net(torch.cat([grid_feat, h], dim=-1))
         return torch.sigmoid(out[..., :1]), torch.sigmoid(out[..., 1:]), dx
 

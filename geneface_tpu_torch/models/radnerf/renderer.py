@@ -14,10 +14,11 @@ per-ray ``noises`` and stop-gradient rays; the occupancy state starts from
 :func:`init_occupancy` + :func:`mark_untrained_grid` and is refreshed by
 :func:`update_extra_state`.
 
-Without ``lattice_K`` and ``mean_samples_per_ray`` a ray batch renders
-through the walk (:func:`march_rays_train`), the field on the whole
-``[N, max_steps]`` slab and :func:`composite_rays`: the route of the torso
-task's frozen head. :func:`render_rays_radnerf_torso` composites the head
+Without ``mean_samples_per_ray`` a ray batch renders through the walk
+(:func:`march_rays_train`), the field on the whole ``[N, max_steps]`` slab
+and :func:`composite_rays` (the padded slab: the import config's route, and
+the torso task's frozen head's); with it but without ``lattice_K`` the walk
+feeds the compaction, as in the JAX renderer. :func:`render_rays_radnerf_torso` composites the head
 over the torso and the torso over the background, with the 2-D torso
 occupancy of :class:`TorsoOccupancyState`.
 """
@@ -270,11 +271,12 @@ def render_rays_radnerf(
 ) -> dict:
     """March + field eval + composite + background.
 
-    With ``mean_samples_per_ray`` (and ``lattice_K``): the lattice march and
-    the compact field eval. Without it: the walk and the field on the whole
-    slab (``dt_gamma`` sets the walk's step beyond the uniform-dt regime);
-    then ``n_samples`` counts each ray's valid samples and ``march_span``
-    is ``None``.
+    With ``mean_samples_per_ray``: the compact field eval, after the
+    lattice march where ``lattice_K`` is set and ``grid_size >= max_steps``
+    (the uniform-dt regime), else after the walk. Without it: the walk and
+    the field on the whole ``[N, max_steps]`` slab. ``dt_gamma`` sets the
+    walk's step beyond the uniform-dt regime; after the walk
+    ``march_span`` is ``None``.
 
     With ``ray_capacity`` (and ``cull_kdop``) only the first
     ``ray_capacity`` rays that meet the k-DOP are rendered; overflow rays
@@ -317,7 +319,7 @@ def render_rays_radnerf(
                 dim=-1,
             )  # [C, 6]
             # unique rows (pad rows N are dropped): the scatter-add is exact
-            full = scatter_add_rows(idx.to(torch.int32), packed, N)
+            full = scatter_add_rows(idx.to(torch.int32), packed, N, site="frame_scatter")
             rgb, ws, depth, amb = full[:, 0:3], full[:, 3], full[:, 4], full[:, 5]
             image = (rgb + (1.0 - ws)[:, None] * bg_color).clamp(0.0, 1.0)
         return {
@@ -331,17 +333,23 @@ def render_rays_radnerf(
 
     if not mean_samples_per_ray:
         return _render_slab(field_fn, rays_o, rays_d, occ, noises, bg_color, **common)
-    if not lattice_K:
-        raise NotImplementedError("the compact path marches the lattice: set lattice_K")
     with record_function("gf::march"):
         rays_o, rays_d = rays_o.detach(), rays_d.detach()
         nears, fars = near_far_from_aabb(rays_o, rays_d, make_aabb(bound, dev), min_near)
         if noises is None:
             noises = torch.zeros(N, device=dev)
-        march = march_rays_lattice(
-            rays_o, rays_d, occ.blocks, occ.tight, nears, fars, noises,
-            bound=bound, max_steps=max_steps, grid_size=grid_size, lattice_K=lattice_K,
-        )
+        # the lattice march needs the uniform-dt regime (grid_size >=
+        # max_steps); without it, or without lattice_K, the walk
+        if lattice_K and grid_size >= max_steps:
+            march = march_rays_lattice(
+                rays_o, rays_d, occ.blocks, occ.tight, nears, fars, noises,
+                bound=bound, max_steps=max_steps, grid_size=grid_size, lattice_K=lattice_K,
+            )
+        else:
+            march = march_rays_train(
+                rays_o.float(), rays_d.float(), occ.grid, nears, fars, noises,
+                bound=bound, dt_gamma=dt_gamma, max_steps=max_steps, grid_size=grid_size,
+            )
     with record_function("gf::compact"):
         S = march.ts.shape[-1]
         # compact-eval capacity: the sample budget, padded to a multiple of
@@ -384,7 +392,7 @@ def render_rays_radnerf(
         # per-ray sums: every valid slot adds its row to its ray; waterfilling
         # keeps total <= Mc, so each ray's samples all lie inside capacity
         rows = torch.where(plan.valid, plan.ray, -1).to(torch.int32)
-        sums = scatter_add_rows(rows, cols, N)  # [N, 6]
+        sums = scatter_add_rows(rows, cols, N, site="composite_sums")  # [N, 6]
         weights_sum = sums[:, 0]
         image = (sums[:, 1:4] + (1.0 - weights_sum)[:, None] * bg_color).clamp(0.0, 1.0)
         span = (fars - nears).clamp(min=1e-6)

@@ -25,9 +25,8 @@ import math
 from typing import NamedTuple
 
 import torch
-import torch.nn.functional as F
 
-from geneface_tpu_torch.ops.encoders import HASH_PRIMES, GridMeta
+from geneface_tpu_torch.ops.encoders import HASH_PRIMES, GridMeta, level_scale, parity_copies
 from geneface_tpu_torch.ops.scatter import launch_gather_rows, launch_scatter_add_rows
 
 __all__ = ["FusedGridMeta", "make_fused_grid_meta", "dense_view", "fused_grid_encode"]
@@ -59,10 +58,6 @@ class FusedGridMeta(NamedTuple):
         return len(self.groups[g]) * (1 << self.input_dim) * self.level_dim
 
 
-def _level_scale(meta: GridMeta, lvl: int) -> float:
-    return math.exp2(lvl * math.log2(meta.per_level_scale)) * meta.base_resolution - 1.0
-
-
 def make_fused_grid_meta(
     meta: GridMeta,
     single_table: bool = False,
@@ -91,7 +86,7 @@ def make_fused_grid_meta(
     modes, n_rows, sides, bsides = [], [], [], []
     for g in groups:
         hashmap_size = meta.offsets[g[0] + 1] - meta.offsets[g[0]]
-        resolution = int(math.ceil(_level_scale(meta, g[0]))) + 1
+        resolution = int(math.ceil(level_scale(meta, g[0]))) + 1
         side = resolution if meta.align_corners else resolution + 1
         if len(g) == 1 and side**D <= hashmap_size:
             modes.append("dense")
@@ -124,34 +119,19 @@ def table_shape(fmeta: FusedGridMeta, gi: int) -> tuple:
 
 def dense_view(table: torch.Tensor, fmeta: FusedGridMeta, gi: int) -> torch.Tensor:
     """Canonical dense ``[side^D, C]`` → parity-copied view
-    ``[K*bside^D, K*C]``: row ``parity*bside^D + block`` holds the ``K``
-    corner entries of every cell whose base has that parity. A per-checkpoint
-    constant: the renderer builds it once per video."""
-    D = fmeta.input_dim
-    K = 1 << D
-    C = fmeta.level_dim
-    side = fmeta.dense_sides[gi]
-    bside = fmeta.dense_bsides[gi]
-    dense = table.reshape((side,) * D + (C,))
-    # channels-first for F.pad: pad 1 before / 2 after on every spatial axis
-    dense_p = F.pad(dense.movedim(-1, 0), (1, 2) * D).movedim(0, -1)
-    copies = []
-    for parity in range(K):
-        for corner in range(K):
-            starts = [
-                1 - ((parity >> (D - 1 - a)) & 1) + ((corner >> (D - 1 - a)) & 1)
-                for a in range(D)
-            ]
-            sl = dense_p[tuple(slice(s, s + 2 * bside - 1, 2) for s in starts)]
-            copies.append(sl.reshape(-1, C))
-    percorner = torch.stack(copies, 0).reshape(K, K, -1, C)
-    return percorner.permute(0, 2, 1, 3).reshape(-1, K * C).contiguous()
+    ``[K*bside^D, K*C]`` (:func:`~geneface_tpu_torch.ops.encoders.parity_copies`):
+    row ``parity*bside^D + block`` holds the ``K`` corner entries of every
+    cell whose base has that parity. A per-checkpoint constant: the
+    renderer builds it once per video."""
+    return parity_copies(
+        table, fmeta.dense_sides[gi], fmeta.dense_bsides[gi], fmeta.input_dim
+    ).contiguous()
 
 
 def _fracs(comps, meta: GridMeta, lvl: int):
     """Per-axis integer base cell, interpolation fraction and, per axis,
     d(fraction)/d(input) of one level."""
-    scale = _level_scale(meta, lvl)
+    scale = level_scale(meta, lvl)
     off = 0.0 if meta.align_corners else 0.5
     base, frac, chain = [], [], []
     for c in comps:

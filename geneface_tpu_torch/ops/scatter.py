@@ -269,47 +269,52 @@ def launch_scatter_add_rows(
 
 class _ScatterAddRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, rows, updates, n_rows):
+    def forward(ctx, rows, updates, n_rows, site):
         ctx.save_for_backward(rows)
         ctx.updates_dtype = updates.dtype
+        ctx.site = site
         return launch_scatter_add_rows(rows, updates, n_rows)
 
     @staticmethod
     def backward(ctx, g):
         (rows,) = ctx.saved_tensors
         if not ctx.needs_input_grad[1]:
-            return None, None, None
+            return None, None, None, None
         # dropped rows (out of range) read a zero row
-        gu = gather_rows(g.contiguous(), rows)
-        return None, gu.to(ctx.updates_dtype), None
+        gu = gather_rows(g.contiguous(), rows, ctx.site)
+        return None, gu.to(ctx.updates_dtype), None, None
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, table, idx):
+    def forward(ctx, table, idx, site):
         ctx.save_for_backward(idx)
         ctx.n_rows = table.shape[0]
         ctx.table_dtype = table.dtype
+        ctx.site = site
         return launch_gather_rows(table, idx)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         if not ctx.needs_input_grad[0]:
-            return None, None
-        gt = scatter_add_rows(idx, g.contiguous(), ctx.n_rows)
-        return gt.to(ctx.table_dtype), None
+            return None, None, None
+        gt = scatter_add_rows(idx, g.contiguous(), ctx.n_rows, ctx.site)
+        return gt.to(ctx.table_dtype), None, None
 
 
 def scatter_add_rows(
-    rows: torch.Tensor, updates: torch.Tensor, n_rows: int
+    rows: torch.Tensor, updates: torch.Tensor, n_rows: int, site=None
 ) -> torch.Tensor:
     """Differentiable :func:`launch_scatter_add_rows`; the gradient of
-    ``updates`` is :func:`gather_rows` of the output gradient at ``rows``."""
-    return _ScatterAddRows.apply(rows, updates, int(n_rows))
+    ``updates`` is :func:`gather_rows` of the output gradient at ``rows``.
+    ``site`` labels the call (and its backward's) for measurements; it
+    changes nothing else."""
+    return _ScatterAddRows.apply(rows, updates, int(n_rows), site)
 
 
-def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(table: torch.Tensor, idx: torch.Tensor, site=None) -> torch.Tensor:
     """Differentiable :func:`launch_gather_rows`; the gradient of ``table``
-    is :func:`scatter_add_rows` of the output gradient at ``idx``."""
-    return _GatherRows.apply(table, idx)
+    is :func:`scatter_add_rows` of the output gradient at ``idx``. ``site``
+    labels the call (and its backward's) for measurements."""
+    return _GatherRows.apply(table, idx, site)

@@ -24,8 +24,10 @@ its checkpoints hold all three (``opt_state`` in the flax layout) and
 ``task_step``, and :meth:`restore_state` reads the port's and the JAX
 trainer's. After each logged validation it renders one full val frame
 (``val_render_frame``) and logs ``val/full_frame_psnr`` and the image.
-Supported: the fused grid backend, the lattice march with compaction
-(``march_backend: lattice``, ``mean_samples_per_ray > 0``), one device.
+Supported: every ``grid_backend`` (``fused``, ``reference``, ``block``);
+``march_backend: lattice`` (the lattice march and the compaction) and
+``walk`` (the walk, then the compaction or, with ``mean_samples_per_ray:
+0``, the padded slab — the GeneFace import config's route); one device.
 Noise comes from the task's seeded ``torch.Generator`` on the device and
 reaches the renderer and the sweep as tensors.
 """
@@ -95,13 +97,8 @@ class RADNeRFTask(Task):
     # ------------------------------------------------------------- build ----
     def build(self) -> None:
         cfg = self.cfg
-        if cfg.get("march_backend", "lattice") != "lattice" or not cfg.get(
-            "mean_samples_per_ray", 8
-        ):
-            raise NotImplementedError(
-                "the port trains through the lattice march + compact path only "
-                "(march_backend: lattice, mean_samples_per_ray > 0)"
-            )
+        if self.march_backend() not in ("lattice", "walk"):
+            raise ValueError(f"march_backend {self.march_backend()!r}: 'lattice' or 'walk'")
         seed = int(cfg.get("seed", 9999))
         dev = self.device
         self.model = model_from_cfg(cfg, dtype=self.dtype)
@@ -204,18 +201,26 @@ class RADNeRFTask(Task):
             out[k] = out.pop(f"{k}_u8").float() / 255.0
         return out
 
+    def march_backend(self) -> str:
+        return str(self.cfg.get("march_backend", "lattice"))
+
     def render_kwargs(self, lip: bool = False) -> dict:
         """The training render's kwargs: the retuned capacities, or for a
-        lip step the config's."""
+        lip step the config's. ``march_backend: walk`` marches with the walk
+        (then compacts when ``mean_samples_per_ray > 0``, else renders the
+        padded slab), as the JAX task does."""
         cfg = self.cfg
         spr, latk = (None, None) if lip else (self._spr_bucket, self._latk_bucket)
+        if latk is None and self.march_backend() == "lattice":
+            latk = int(cfg.get("lattice_K", 32))
         return dict(
             bound=self.bound,
             min_near=float(cfg.get("min_near", 0.05)),
+            dt_gamma=float(cfg.get("dt_gamma", 1.0 / 256)),
             max_steps=int(cfg.get("max_steps", 16)),
             grid_size=self.grid_size,
             mean_samples_per_ray=float(spr or cfg.get("mean_samples_per_ray", 8)),
-            lattice_K=int(latk or cfg.get("lattice_K", 32)),
+            lattice_K=latk,
         )
 
     # -------------------------------------------------------------- loss ----
@@ -240,11 +245,9 @@ class RADNeRFTask(Task):
         )
         pred, gt = out["rgb_map"], batch["gt_img"]
         mse = torch.mean((pred - gt) ** 2)
-        losses = {
-            "mse_loss": mse,
-            "mean_samples": out["n_samples"].float().mean(),
-            "march_span": out["march_span"].float(),
-        }
+        losses = {"mse_loss": mse, "mean_samples": out["n_samples"].float().mean()}
+        if out["march_span"] is not None:  # the lattice march's
+            losses["march_span"] = out["march_span"].float()
         if train:
             a = out["weights_sum"].clamp(1e-5, 1 - 1e-5)
             losses["weights_entropy_loss"] = torch.mean(
@@ -297,17 +300,21 @@ class RADNeRFTask(Task):
         return True
 
     def maybe_retune_capacity(self, losses: dict) -> None:
-        """Re-pick the lattice budget from the march span and the sample
-        capacity from the mean samples per ray: on the first step and every
-        ``capacity_check_interval`` steps (one host read each)."""
+        """Re-pick the lattice budget from the march span (the lattice
+        march's) and the sample capacity from the mean samples per ray (not
+        on the padded slab, ``mean_samples_per_ray: 0``): on the first step
+        and every ``capacity_check_interval`` steps (one host read each)."""
         cfg = self.cfg
         if self._checked and self._step % int(cfg.get("capacity_check_interval", 64)):
             return
         self._checked = True
-        need = 1.15 * float(losses["march_span"])
-        self._latk_bucket = min(
-            [b for b in self.LATK_BUCKETS if b >= need] or [self.LATK_BUCKETS[-1]]
-        )
+        if "march_span" in losses:
+            need = 1.15 * float(losses["march_span"])
+            self._latk_bucket = min(
+                [b for b in self.LATK_BUCKETS if b >= need] or [self.LATK_BUCKETS[-1]]
+            )
+        if not cfg.get("mean_samples_per_ray", 8):  # the padded slab: no capacity
+            return
         want = float(cfg.get("capacity_headroom", 1.15)) * float(losses["mean_samples"])
         spr = min([b for b in self.SPR_BUCKETS if b >= want] or [16.0])
         self._spr_bucket = min(spr, float(cfg.get("max_steps", 16)))
@@ -349,10 +356,12 @@ class RADNeRFTask(Task):
     # ------------------------------------------------------- val frame ----
     def frame_kwargs(self) -> dict:
         """The val frame's render kwargs: the config's sample capacity, and
-        the lattice budget retuned so far, both fixed at the first call (the
-        JAX task compiles its frame function once)."""
+        (``march_backend: lattice``) the lattice budget retuned so far, both
+        fixed at the first call (the JAX task compiles its frame function
+        once)."""
         if self._frame_kwargs is None:
             cfg = self.cfg
+            lattice = self.march_backend() == "lattice"
             self._frame_kwargs = dict(
                 bound=self.bound,
                 min_near=float(cfg.get("min_near", 0.05)),
@@ -360,7 +369,7 @@ class RADNeRFTask(Task):
                 grid_size=self.grid_size,
                 dt_gamma=float(cfg.get("dt_gamma", 1.0 / 256)),
                 mean_samples_per_ray=float(cfg.get("mean_samples_per_ray", 8)),
-                lattice_K=int(self._latk_bucket or cfg.get("lattice_K", 32)),
+                lattice_K=int(self._latk_bucket or cfg.get("lattice_K", 32)) if lattice else None,
             )
         return self._frame_kwargs
 
@@ -434,12 +443,16 @@ class RADNeRFTask(Task):
 
     def restore_state(self, state: dict) -> None:
         """Parameters, occupancy and optimizer state of a checkpoint
-        written by the port or by the JAX trainer (optax's state tree)."""
+        written by the port or by the JAX trainer (optax's state tree). A
+        checkpoint without optimizer state (an imported GeneFace one,
+        ``utils/torch_import.py``) keeps the fresh optimizer: a fine-tune."""
         dev = self.device
         self.model.load_state_dict(
             {k: torch.as_tensor(v) for k, v in flax_to_state_dict(state["params"]).items()})
         self.set_occupancy(OccupancyState(
             *[torch.as_tensor(np.asarray(x), device=dev) for x in state["occ"]]))
-        opt = state["opt_state"]
+        opt = state.get("opt_state")
+        if opt is None:
+            return
         self.optimizer.load_state_dict(
             opt if isinstance(opt, dict) else adam_state_from_optax(opt))

@@ -9,7 +9,8 @@ flax ``FrozenDict`` nodes, and its trainer pickles optax's optimizer state
 each to a plain type of the port without importing either framework, and
 refuses every other global except numpy's array reconstruction helpers
 (unpickling can otherwise run arbitrary code). :func:`adam_state_from_optax`
-reads the Adam moments out of such a tree.
+reads the Adam moments (and, from a ``MultiStepsState``, the gradient
+accumulator) out of such a tree.
 
 :func:`save_checkpoint` writes plain dicts/tuples of numpy arrays in the JAX
 layout — ``{"state": {"params": {"params": ...}, "occ": (density_grid,
@@ -249,18 +250,17 @@ def _merge_group_trees(trees: list) -> Any:
 
 
 def _find_partition(state: Any, path: str = "opt_state") -> tuple:
-    """(``PartitionState``, ``ApplyIfFiniteState`` or ``None``) inside an
-    optax state tree of the JAX trainer."""
+    """(``PartitionState``, ``ApplyIfFiniteState`` or ``None``,
+    ``MultiStepsState`` or ``None``) inside an optax state tree of the JAX
+    trainer (``apply_if_finite(MultiSteps(chain(...)))`` at most)."""
     if isinstance(state, MultiStepsState):
-        raise NotImplementedError(
-            f"{path} is optax's MultiStepsState (accumulate_grad_batches > 1 in "
-            "the JAX trainer): resuming it in the port is not supported"
-        )
+        part, _, _ = _find_partition(state.inner_opt_state, f"{path}.inner_opt_state")
+        return part, None, state
     if isinstance(state, PartitionState):
-        return state, None
+        return state, None, None
     if isinstance(state, ApplyIfFiniteState):
-        part, _ = _find_partition(state.inner_state, f"{path}.inner_state")
-        return part, state
+        part, _, multi = _find_partition(state.inner_state, f"{path}.inner_state")
+        return part, state, multi
     if isinstance(state, tuple):  # optax.chain: clipping's EmptyState first
         found = [s for s in state if not isinstance(s, EmptyState)]
         if len(found) == 1:
@@ -274,8 +274,11 @@ def adam_state_from_optax(state: Any) -> dict:
     ``{"count", "skipped", "mu", "nu"}`` (``mu``/``nu`` one flax tree each,
     every group's moments merged, the ``MaskedNode`` leaves skipped). Each
     group keeps its own Adam count; they must agree. ``skipped`` is
-    ``ApplyIfFiniteState.total_notfinite`` (0 without the guard)."""
-    part, guard = _find_partition(state)
+    ``ApplyIfFiniteState.total_notfinite`` (0 without the guard). A run with
+    ``accumulate_grad_batches > 1`` (optax's ``MultiStepsState``) adds
+    ``mini_step`` and ``acc_grads``, the accepted micro-batches since the
+    last update and their running mean; its Adam state is the inner one."""
+    part, guard, multi = _find_partition(state)
     adams = {}
     for name, masked in part.inner_states.items():
         inner = masked.inner_state if isinstance(masked, MaskedState) else masked
@@ -286,9 +289,13 @@ def adam_state_from_optax(state: Any) -> dict:
     counts = {name: int(np.asarray(a.count)) for name, a in adams.items()}
     if len(set(counts.values())) != 1:
         raise ValueError(f"the optax groups' Adam counts differ: {counts}")
-    return {
+    out = {
         "count": np.asarray(next(iter(counts.values())), np.int32),
         "skipped": np.asarray(0 if guard is None else guard.total_notfinite, np.int32),
         "mu": _merge_group_trees([a.mu for a in adams.values()]),
         "nu": _merge_group_trees([a.nu for a in adams.values()]),
     }
+    if multi is not None:
+        out["mini_step"] = np.asarray(multi.mini_step, np.int32)
+        out["acc_grads"] = multi.acc_grads
+    return out

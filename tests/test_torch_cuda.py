@@ -14,7 +14,8 @@ of two summation orders (up to 655,360 terms land on one row, where a fixed
 atol would either fail or check nothing); a row gather is a copy — exact;
 the grid forward (corner sums in another order) rtol 1e-6, atol 1e-7; the
 grid backward's table gradients (atomic order) rtol 1e-5, atol 1e-6·max,
-its input gradients rtol 1e-4, atol 1e-6·max; a float32 frame (head, or
+its input gradients rtol 1e-4, atol 1e-6·max (the reference and block
+encoders of the import layout are held so too); a float32 frame (head, or
 head+torso) on the card vs the CPU — 1e-5 absolute per pixel.
 """
 
@@ -93,6 +94,13 @@ SITE_SHAPES = {
     "frame_scatter": (135168, 6, 262144),
     "torso_group_0": (65536, 16, 324),
     "torso_group_1": (65536, 112, 5466),
+    # the GeneFace import layouts (16 levels × 2) at a 65,536-ray step of
+    # the padded slab (1,048,576 samples): the reference backend's capped
+    # 3-D level (8 corners per sample), the block backend's capped 3-D and
+    # finest dense 2-D local tables
+    "reference_pos_capped_level": (8388608, 2, 65536),
+    "block_pos_capped_level": (1048576, 16, 8192),
+    "block_ambient_dense_level": (1048576, 8, 46656),
 }
 
 
@@ -208,6 +216,11 @@ def test_scatter_kernel_rejects_mixed_devices(card):
         (16384, 5466, 112, torch.float32),  # the torso sweep
         (1000, 50, 6, torch.float32),  # W % 4 != 0: the scalar path
         (0, 10, 8, torch.float32),  # no indices
+        # the import layouts: the reference grid's corners of a capped 3-D
+        # level (2 wide), the block grid's cells (bfloat16 fast tables)
+        (17301504, 65536, 2, torch.float32),
+        (2162688, 8192, 16, torch.bfloat16),
+        (2162688, 46656, 8, torch.bfloat16),
     ],
 )
 def test_gather_kernel_matches_plain(card, M, R, W, dtype):
@@ -294,6 +307,44 @@ def test_grid_backward_on_card_matches_cpu(card, D, need_input_grad):
     if need_input_grad:
         b = res["cpu"][2]
         torch.testing.assert_close(res["cuda"][2], b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("backend,D", [("reference", 3), ("reference", 2), ("block", 3),
+                                       ("block", 2)])
+def test_import_grid_encoders_on_card_match_cpu(card, backend, D):
+    """The reference and block encoders at the import geometry (16 levels ×
+    2, hashmap 2^16, finest resolution 2048), forward and both gradients
+    end to end on the card against the CPU: one K8 launch per level
+    forward, one K1 per level backward."""
+    from geneface_tpu_torch.ops import encoders as E
+
+    meta = E.make_grid_meta(input_dim=D, num_levels=16, level_dim=2, log2_hashmap_size=16,
+                            desired_resolution=2048, gridtype="tiled")
+    bmeta = E.make_block_grid_meta(meta)
+    gen = torch.Generator().manual_seed(D)
+    x = torch.rand(200000, D, generator=gen) * 1.02 - 0.01
+    emb = torch.rand(meta.n_entries, 2, generator=gen) * 2 - 1
+    gout = torch.randn(200000, 32, generator=gen)
+    res = {}
+    for dev in ("cpu", card):
+        xs = x.clone().to(dev).requires_grad_(True)
+        es = emb.clone().to(dev).requires_grad_(True)
+        before = dict(LAUNCHES)
+        if backend == "reference":
+            out = E.grid_encode(xs, es, meta)
+        else:
+            out = E.fast_grid_encode(xs, es, bmeta)
+        out.backward(gout.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert LAUNCHES["gather_rows"] == before["gather_rows"] + 16
+            assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 16
+        res[str(dev)] = (out.detach().cpu(), es.grad.cpu(), xs.grad.cpu())
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-6, atol=1e-7)
+    b = res["cpu"][1]
+    torch.testing.assert_close(res["cuda"][1], b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    b = res["cpu"][2]
+    torch.testing.assert_close(res["cuda"][2], b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
 
 
 def test_frame_on_card_matches_cpu(card, tmp_path):

@@ -42,3 +42,13 @@ def test_imports_no_jax(extra):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def test_walk_covers_the_import_path():
+    """The modules that read GeneFace checkpoints and the grid backends of
+    the import layout are among those imported above."""
+    mods = set(_port_modules())
+    for name in ("geneface_tpu_torch.utils.torch_import", "geneface_tpu_torch.tools",
+                 "geneface_tpu_torch.tools.validate_import", "geneface_tpu_torch.ops.encoders",
+                 "geneface_tpu_torch.utils.checkpoint"):
+        assert name in mods, name

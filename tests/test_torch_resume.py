@@ -13,7 +13,8 @@ Tolerances, per check:
   parameters inherit the gradients' relative error);
 - ``accumulate_grad_batches: 2`` over 5 micro-steps, one with a NaN: every
   parameter within atol 1e-7 and rtol 1e-6 of ``apply_if_finite(MultiSteps(
-  ...))``, the counts exact;
+  ...))``, the counts exact; the same bounds for the 2 micro-steps after a
+  JAX-written ``MultiStepsState`` is restored;
 - the work-dir listings of a 4-step run of each trainer: equal, but for the
   JAX run's TensorBoard directory ``tb/`` (the port logs no TensorBoard);
 - the full val frame at the bf16 default: max abs 1e-3 and mean abs 1e-6
@@ -300,12 +301,61 @@ def test_gradient_accumulation_matches_optax_multisteps(scene, tiny_params, clip
     assert int(adam_count) == 2
 
 
+@pytest.mark.parametrize("jax_steps", [2, 3])
+def test_jax_accumulating_run_resumes_in_the_port(scene, tiny_params, tmp_path, jax_steps):
+    """A JAX run at ``accumulate_grad_batches: 2`` (``apply_if_finite(
+    MultiSteps(...))``) takes ``jax_steps`` micro-steps and is checkpointed
+    by the JAX package; the port's task restores the checkpoint (after 3
+    micro-steps, the accumulator holds one), and the next 2 micro-steps on
+    both sides, with the same gradients, leave every parameter within the
+    accumulation test's atol 1e-7 and rtol 1e-6."""
+    cfg = tiny_cfg(str(scene / "data"), "", accumulate_grad_batches=2)
+    params = jax.tree_util.tree_map(np.array, tiny_params)
+    tx = finalize_optimizer(multi_group_adam(
+        params, jsched.build_schedule(cfg), jlabel, {"net": 1.0, "grid": 10.0, "att": 5.0},
+        eps=1e-15), JConfig(cfg))
+    opt_state = tx.init(params)
+    update = jax.jit(tx.update)
+    rng = np.random.RandomState(7)
+
+    def grads():
+        return jax.tree_util.tree_map(
+            lambda p: rng.randn(*p.shape).astype(np.float32) * 0.03, params)
+
+    for _ in range(jax_steps):
+        upd, opt_state = update(grads(), opt_state, params)
+        params = optax.apply_updates(params, upd)
+    occ = JOcc(jnp.zeros((1, 32**3)), jnp.zeros((1, 32, 32, 32), bool), jnp.zeros(()))
+    path = str(tmp_path / f"model_ckpt_steps_{jax_steps}.ckpt")
+    jsave_checkpoint(path, {"state": {"params": params, "occ": occ, "opt_state": opt_state},
+                            "step": jax_steps})
+
+    task = RADNeRFTask(cfg, device="cpu", dtype=torch.float32)
+    task.build()
+    task.restore_state(load_checkpoint(path)["state"])
+    opt = task.optimizer
+    assert int(opt.mini_step) == jax_steps % 2 and int(opt.count) == jax_steps // 2
+    named = dict(task.model.named_parameters())
+    for _ in range(2):
+        g = grads()
+        upd, opt_state = update(g, opt_state, params)
+        params = optax.apply_updates(params, upd)
+        for name, v in flax_to_state_dict(g).items():
+            named[name].grad = torch.from_numpy(v)
+        opt.step()
+    assert int(opt.count) == (jax_steps + 2) // 2
+    for name, want in flax_to_state_dict(params).items():
+        np.testing.assert_allclose(named[name].detach().numpy(), want, atol=1e-7, rtol=1e-6,
+                                   err_msg=name)
+
+
 @pytest.mark.parametrize("layout", ["guarded", "clipped", "unguarded", "accumulating"])
 def test_optax_state_layouts_read(scene, tiny_params, tmp_path, layout):
     """Each optax state the JAX trainer pickles for the head config (the
     default ``apply_if_finite`` guard, clipping's ``EmptyState`` chained in
-    front, no guard) reads back as the port's ``{count, skipped, mu, nu}``
-    without optax; a ``MultiStepsState`` is refused by name."""
+    front, no guard, and ``MultiSteps`` inside the guard) reads back as the
+    port's ``{count, skipped, mu, nu}`` without optax, with MultiSteps'
+    ``mini_step`` and ``acc_grads``."""
     over = {"clipped": {"clip_grad_norm": 0.5}, "unguarded": {"guard_nan_grads": False},
             "accumulating": {"accumulate_grad_batches": 2}}.get(layout, {})
     cfg = tiny_cfg(str(scene / "data"), "", **over)
@@ -325,16 +375,21 @@ def test_optax_state_layouts_read(scene, tiny_params, tmp_path, layout):
     path = str(tmp_path / "model_ckpt_steps_3.ckpt")
     jsave_checkpoint(path, {"state": {"opt_state": state}, "step": 3})
     opt = load_checkpoint(path)["state"]["opt_state"]
-    if layout == "accumulating":
-        with pytest.raises(NotImplementedError, match="MultiStepsState"):
-            adam_state_from_optax(opt)
-        return
     got = adam_state_from_optax(opt)
     part = state
-    while not hasattr(part, "inner_states"):  # unwrap the guard and the chain
-        part = part.inner_state if hasattr(part, "inner_state") else part[-1]
-    want_count = 3 if layout == "unguarded" else 2
+    while not hasattr(part, "inner_states"):  # unwrap the guard, MultiSteps, the chain
+        part = (part.inner_state if hasattr(part, "inner_state") else
+                part.inner_opt_state if hasattr(part, "inner_opt_state") else part[-1])
+    # accumulating: 2 accepted micro-batches of 2 make one update
+    want_count = {"unguarded": 3, "accumulating": 1}.get(layout, 2)
     assert int(got["count"]) == want_count
+    if layout == "accumulating":
+        multi = state.inner_state
+        assert int(got["mini_step"]) == int(multi.mini_step) == 0
+        for name, want in flax_to_state_dict(multi.acc_grads).items():
+            np.testing.assert_array_equal(flax_to_state_dict(got["acc_grads"])[name], want)
+    else:
+        assert "acc_grads" not in got
     assert int(got["skipped"]) == (0 if layout == "unguarded" else 1)
     for k in ("mu", "nu"):
         for name, group in (("sigma_net.layers.0.weight", "net"),
