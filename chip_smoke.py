@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's eight paths at the full width of
+Drives the port's nine paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, and of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -31,6 +31,20 @@ with random weights from a seeded ``torch.Generator``:
   with the LLE projection on; HuBERT, VAE, post-net, the LLE'd conditions
   and a frame held against the CPU plain path on the card's inputs; each
   stage timed, and the LLE alone against a 6,000-row database;
+- stage A's training (``audio_train``): a synthetic LRS3 store written
+  with the port's builder (320 + 16 clips of 40–150 frames, the reference
+  binarizer's schema, ~250 MB), then ``Trainer.fit`` on the shipped
+  configs: SyncNet 8 steps (64 mined clips per step), the VAE 8 steps on
+  that run, the post-net 8 steps (discriminator every step) on both, the
+  pitch VAE 4 steps and the pitch post-net 4 steps on it, each with a
+  validation; the frozen upstreams bit-identical and equal to their
+  checkpoints; one step of each task on 16 clips held against the CPU
+  plain path with the same clips and noise (loss rel 1e-5, gradients 1e-4
+  relative L2; the CPU replays the card's ReLU decisions); ms/step, device
+  busy and idle share and the ``gf::syncnet``/``gf::vae``/
+  ``gf::postnet_gen``/``gf::postnet_disc`` spans per task; then
+  ``PostnetInfer`` of the 8 s wav from the trained VAE and post-net, held
+  card vs CPU;
 - head training through the lip phase (``train_lip``): the training cell
   with ``finetune_lips`` from step 4 (64² lip patches, LPIPS at seeded
   weights, ``lambda_lpips_loss`` 0.01) for 12 ``train_step`` calls, the lip
@@ -421,7 +435,8 @@ def capture_calls(run) -> list:
     frame of ``ops/fused_grid.py``), else from the calling frame's ``site``:
     ``("level", id(grid meta), level, backend)`` for the reference and
     block grids', ``("named", name)`` for the renderer's scatters (and
-    their backward gathers)."""
+    their backward gathers), ``("clip", name)`` for stage A's clip gathers
+    (and their backward scatter-adds)."""
     import torch
 
     calls = []
@@ -436,6 +451,8 @@ def capture_calls(run) -> list:
                 owner = (id(caller["fmeta"]), caller["gi"])
             elif isinstance(site, str):  # the renderer's named scatters
                 owner = ("named", site)
+            elif site[0] == "clip":  # stage A's clip gathers (and their adjoint)
+                owner = ("clip", site[1])
             else:  # a reference or block grid level
                 owner = ("level", id(site[0]), site[1], site[2])
             calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
@@ -567,9 +584,13 @@ def measure_gather(table, idx) -> dict:
     for _ in range(3):
         rounds["kernel"].append(device_ms(kernel))
         rounds["library"].append(device_ms(library))
-    n_bytes = M * 4 + R * W * table.element_size() + M * W * 4
+    # the rows this call must read: each distinct in-range row once (a clip
+    # gather reads 640 of a batch's ~77,000 HuBERT rows)
+    n_read = int(torch.unique(idx[keep]).numel())
+    n_bytes = M * 4 + n_read * W * table.element_size() + M * W * 4
     return {
-        "M": M, "W": W, "n_rows": R, "kept_rows": int(keep.sum()), "max_abs_err": err,
+        "M": M, "W": W, "n_rows": R, "kept_rows": int(keep.sum()), "rows_read": n_read,
+        "max_abs_err": err,
         "columns_per_thread": ga.pick_gather_path(
             W, table.element_size(), table.data_ptr(), got.data_ptr()),
         "ms": sorted(rounds["kernel"])[1],
@@ -601,7 +622,11 @@ def name_sites(calls, grids: dict, path: str) -> dict:
     label."""
     sites = {}
     for kind, args, owner in calls:
-        if owner[0] == "level":  # a reference / block grid level
+        if owner[0] == "clip":  # a clip gather over a batch's rows, or its adjoint
+            gather = kind == "gather_rows"
+            site = f"{path}.{owner[1]}.{'forward_gather' if gather else 'backward_scatter'}"
+            kernel = "gather_rows" if gather else "scatter_add_rows"
+        elif owner[0] == "level":  # a reference / block grid level
             _, meta_id, lvl, backend = owner
             gather = kind == "gather_rows"
             step = "forward_gather" if gather else "backward_scatter"
@@ -1145,6 +1170,426 @@ def audio_serve_phase(cfg, out_dir: str, path: str = "audio_serve") -> tuple:
                                   "idle_share": idle_a, "spans_ms": spans,
                                   "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]},
               "frame_profile": prof}
+    return record, launches, sites
+
+
+#: the audio_train path: a synthetic LRS3 store at LRS3's clip lengths
+#: (1.6–6 s at 25 fps), stage A's three networks trained in their order,
+#: steps per run, mined clips per step (the shipped configs' 64), and the
+#: clips of each task's card-vs-CPU step
+LRS3_TRAIN_CLIPS = 320
+LRS3_VAL_CLIPS = 16
+LRS3_FRAMES = (40, 150)
+AUDIO_TRAIN_STEPS = {"syncnet": 8, "vae": 8, "postnet": 8, "pitch_vae": 4, "pitch_postnet": 4}
+AUDIO_CHECK_CLIPS = 16
+AUDIO_TRAIN_YAML = {
+    "syncnet": "egs/datasets/lrs3/lm3d_syncnet.yaml",
+    "vae": "egs/datasets/lrs3/lm3d_vae_sync.yaml",
+    "pitch_vae": "egs/datasets/lrs3/lm3d_vae_sync_pitch.yaml",
+    "postnet": "egs/datasets/videos/May/lm3d_postnet_sync.yaml",
+    "pitch_postnet": "egs/datasets/videos/May/lm3d_postnet_sync_pitch.yaml",
+}
+
+
+def write_lrs3_store(out_dir: str, n_train: int, n_val: int, seed: int = 0) -> str:
+    """A binarized LRS3 store in the schema of the reference binarizer
+    (``hubert [2T, 1024]``, ``mel [2T, 80]``, ``f0 [2T]``, ``idexp_lm3d [T,
+    68, 3]``), written with the port's builder, T uniform in
+    ``LRS3_FRAMES``: landmarks follow a low-frequency drive of the audio
+    features, so there is audio-to-motion structure to learn."""
+    import numpy as np
+
+    from geneface_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    for prefix, n in (("train", n_train), ("val", n_val)):
+        b = IndexedDatasetBuilder(os.path.join(out_dir, prefix), header_size=1 << 20)
+        for i in range(n):
+            T = rng.randint(LRS3_FRAMES[0], LRS3_FRAMES[1] + 1)
+            phase = rng.rand() * 6.28
+            drive = np.sin(0.3 * np.arange(2 * T) + phase)[:, None].astype(np.float32)
+            hubert = drive * rng.randn(1, 1024).astype(np.float32) * 0.5 + rng.randn(
+                2 * T, 1024).astype(np.float32) * 0.1
+            mel = drive * rng.randn(1, 80).astype(np.float32) + rng.randn(
+                2 * T, 80).astype(np.float32) * 0.1
+            lm = (drive[::2, :, None] * rng.randn(1, 68, 3) * 0.3
+                  + rng.randn(T, 68, 3) * 0.02).astype(np.float32)
+            b.add_item({"hubert": hubert, "mel": mel, "f0": 200 + 50 * drive[:, 0],
+                        "idexp_lm3d": lm, "item_id": f"{prefix}_{i}"}, id=i)
+        b.finalize()
+    return out_dir
+
+
+class CardDecisions:
+    """The ReLU and leaky-ReLU decisions of SyncNet, the post-net and its
+    discriminator, taken on the card and replayed on the CPU: the same
+    pre-activation can round to either side of zero on the two devices
+    (~1e6 of them per step in the frozen SyncNet's 26 ReLU layers), and a
+    unit that turns the other way moves the gradients below it by up to a
+    percent (seen in the CPU tests against JAX). Inside :meth:`record` the
+    modules' ``F.relu``/``F.leaky_relu`` run as they are and note which
+    elements pass; inside :meth:`replay` the CPU run passes exactly those
+    (the CPU's own values, its own gradient through them) and counts the
+    elements whose own decision differed."""
+
+    def __init__(self):
+        self.masks, self.flips, self.elements = [], 0, 0
+
+    def _patched(self, record: bool):
+        import contextlib
+
+        import torch
+        import torch.nn.functional as F
+
+        from geneface_tpu_torch.models.postnet import models as postnet_models
+        from geneface_tpu_torch.models.syncnet import models as syncnet_models
+
+        owner = self
+        calls = iter(range(10**9))
+
+        def decide(x, slope):
+            if record:
+                owner.masks.append((x > 0).detach())
+                return F.relu(x) if slope == 0.0 else F.leaky_relu(x, slope)
+            card = owner.masks[next(calls)].to(x.device)
+            if card.shape != x.shape:
+                raise AssertionError(f"activation {card.shape} on the card, {x.shape} on CPU")
+            owner.flips += int((card != (x > 0)).sum())
+            owner.elements += x.numel()
+            return torch.where(card, x, slope * x)
+
+        class Functional:
+            def __getattr__(self, name):
+                return getattr(F, name)
+
+            def relu(self, x):
+                return decide(x, 0.0)
+
+            def leaky_relu(self, x, negative_slope=0.01):
+                return decide(x, negative_slope)
+
+        @contextlib.contextmanager
+        def patch():
+            mods = (syncnet_models, postnet_models)
+            for m in mods:
+                m.F = Functional()
+            try:
+                yield self
+            finally:
+                for m in mods:
+                    m.F = F
+
+        return patch()
+
+    def record(self):
+        self.masks = []
+        return self._patched(True)
+
+    def replay(self):
+        self.flips = self.elements = 0
+        return self._patched(False)
+
+
+def audio_task_cfg(name: str, store: str, work: str, **over):
+    """The shipped config of one stage-A task on the store, ``max_updates``
+    its ``AUDIO_TRAIN_STEPS``, a validation (one val batch) at the end."""
+    from geneface_tpu_torch.config.config import load_config
+
+    steps = AUDIO_TRAIN_STEPS[name]
+    return load_config(os.path.join(REPO, AUDIO_TRAIN_YAML[name]), overrides=dict(
+        data_dir=store, lrs3_data_dir=store, work_dir=os.path.join(work, name),
+        max_updates=steps, val_check_interval=steps, tb_log_interval=steps,
+        num_sanity_val_steps=0, eval_max_batches=1, **over))
+
+
+def trees_differ(a: dict, b: dict, key: str = "") -> list:
+    """Paths where two nested dicts of arrays differ (in keys or values)."""
+    import numpy as np
+
+    if sorted(a) != sorted(b):
+        return [key + "/<keys>"]
+    out = []
+    for k in b:
+        if isinstance(b[k], dict):
+            out += trees_differ(a[k], b[k], f"{key}/{k}")
+        elif not np.array_equal(np.asarray(a[k]), np.asarray(b[k])):
+            out.append(f"{key}/{k}")
+    return out
+
+
+def cut_batch(batch: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def audio_step_vs_cpu(name: str, task, lrs3: dict, person: dict) -> dict:
+    """One step of ``task`` (trained on the card) on ``AUDIO_CHECK_CLIPS``
+    clips, the same mined indices and noise, on the card and on the port's
+    plain CPU path (a CPU task of the same config with the card task's
+    parameters, the card's activation decisions): loss within 1e-5
+    relative, every parameter's gradient within 1e-4 relative L2, every
+    loss finite, each optimizer's gradient non-zero. SyncNet: its loss on
+    the clips; the VAE: with the sync term on; the post-net: the generator
+    step with ``adv`` and ``sync`` on, then the discriminator on the
+    generator's refinement."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.tasks.syncnet import mine_sync_clips, to_device
+
+    lrs3 = cut_batch(lrs3, AUDIO_CHECK_CLIPS)
+    person = cut_batch(person, AUDIO_CHECK_CLIPS)
+    idx = mine_sync_clips(lrs3["y_mask"].sum(-1).astype(int), task.clip_batch,
+                          np.random.RandomState(3), infer=not name == "syncnet")
+    gen = torch.Generator().manual_seed(11)
+    B, T = lrs3["y_mask"].shape
+    Bp, Tp = person["y_mask"].shape
+    if name != "syncnet":
+        frozen = task.vae if "postnet" in name else task.model
+        noises = (torch.randn(frozen.noise_shape(B, T), generator=gen),
+                  torch.randn(frozen.noise_shape(Bp, Tp), generator=gen))
+    decisions = CardDecisions()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t = task if dev == "cuda" else type(task)(task.cfg, device="cpu")
+        if dev == "cpu":
+            t.build()
+            t.restore_state(task.checkpoint_payload(0)["state"])
+            for mod in ("syncnet", "vae"):
+                if hasattr(task, mod):
+                    getattr(t, mod).load_state_dict(getattr(task, mod).state_dict())
+            if hasattr(task, "enable_sync"):
+                t.enable_sync = True
+        nets = [t.model] + ([t.disc] if hasattr(t, "disc") else [])
+        for m in nets:
+            m.zero_grad(set_to_none=True)
+        with decisions.record() if dev == "cuda" else decisions.replay():
+            if name == "syncnet":
+                from geneface_tpu_torch.tasks.syncnet import gather_clips
+
+                d = to_device(lrs3, ("mouth_lm3d", "hubert"), t.device)
+                mouth, mel = gather_clips(d["mouth_lm3d"], d["hubert"], *idx[:4])
+                loss, losses = t.loss_fn({"mouth": mouth, "mel": mel,
+                                          "labels": torch.from_numpy(idx[4]).to(t.device)})
+                loss.backward()
+            elif "vae" in name:
+                d = to_device(lrs3, ("hubert", "y", "y_mask", "f0"), t.device)
+                loss, losses = t.loss_fn(d, idx[:4], noises[0].to(t.device),
+                                         float(t.cfg.get("lambda_sync", 0.01)))
+                loss.backward()
+            else:
+                keys = t.keys()
+                dl, dp = to_device(lrs3, keys, t.device), to_device(person, keys, t.device)
+                loss, losses, pred = t.gen_loss(dl, dp, idx[:4], tuple(
+                    n.to(t.device) for n in noises), 1.0)
+                loss.backward()
+                d_loss, d_losses = t.disc_loss(pred, dp["y"], dp["y_mask"])
+                d_loss.backward()
+                losses = {**losses, **d_losses}
+        out[dev] = ({k: float(v.detach()) for k, v in losses.items()},
+                    {f"{i}.{n}": p.grad.detach().cpu().double() for i, m in enumerate(nets)
+                     for n, p in m.named_parameters() if p.grad is not None},
+                    [sum(int(p.grad is not None and bool((p.grad != 0).any()))
+                         for p in m.parameters()) for m in nets])
+    (lg, gg, nz), (lc, gc, _) = out["cuda"], out["cpu"]
+    if gg.keys() != gc.keys() or not gc:
+        raise AssertionError(f"audio_train.{name}: gradients of {len(gg)} tensors on the card, "
+                             f"{len(gc)} on CPU")
+    if not all(np.isfinite(v) for v in list(lg.values()) + list(lc.values())):
+        raise AssertionError(f"audio_train.{name}: non-finite loss {lg} / {lc}")
+    loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
+    errs = {n: float((gg[n] - g).norm() / g.norm()) if g.norm() > 0 else float(gg[n].norm())
+            for n, g in gc.items()}
+    res = {"clips": AUDIO_CHECK_CLIPS, "mined": len(idx[0]), "loss_cuda": lg, "loss_cpu": lc,
+           "worst_loss_rel": max(loss_err.values()), "worst_grad_rel_l2": max(errs.values()),
+           "worst_grad": max(errs, key=errs.get), "n_params_with_grad": len(gc),
+           "nonzero_grad_params_by_optimizer": nz,
+           "activation_flips": decisions.flips, "activation_elements": decisions.elements}
+    if not res["worst_loss_rel"] <= 1e-5 or not res["worst_grad_rel_l2"] <= 1e-4 or not all(nz):
+        raise AssertionError(f"audio_train.{name}: card vs CPU: {res}; all: {errs}")
+    print(f"audio_train.{name}: card vs CPU plain path on one step passed: " + json.dumps(res))
+    return res
+
+
+def audio_train_phase(cfg, out_dir: str, path: str = "audio_train") -> tuple:
+    """Stage A's training on the card through ``Trainer.fit`` on the shipped
+    configs: SyncNet, the VAE on that SyncNet run, the post-net on both,
+    then the pitch VAE and the pitch post-net; each task's step held
+    against the CPU plain path, timed and profiled; the frozen upstreams
+    bit-identical after their dependants train; then ``PostnetInfer`` of
+    ``audio_serve``'s 8 s wav from the trained VAE and post-net →
+    (record, launches, sites)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from geneface_tpu_torch.convert import flax_variables
+    from geneface_tpu_torch.data.lrs3_dataset import LRS3SeqDataset
+    from geneface_tpu_torch.inference import PostnetInfer
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.run import resolve_task
+    from geneface_tpu_torch.training.trainer import Trainer
+    from geneface_tpu_torch.utils.audio import extract_f0, extract_hubert, load_hubert, load_wav16k
+    from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
+
+    root = os.path.dirname(cfg["work_dir"])
+    work = os.path.join(root, "audio_train")
+    t0 = time.perf_counter()
+    store = write_lrs3_store(os.path.join(root, "lrs3"), LRS3_TRAIN_CLIPS, LRS3_VAL_CLIPS)
+    n_bytes = sum(os.path.getsize(os.path.join(store, f)) for f in os.listdir(store))
+    ds = LRS3SeqDataset("train", store, max_tokens=60000)
+    host = []
+    batches = ds.iter_batches(seed=0)
+    for _ in range(3):
+        ts = time.perf_counter()
+        b = next(batches)
+        host.append(((time.perf_counter() - ts) * 1e3, len(b["item_names"]), b["y"].shape[1]))
+    print(f"{path}: LRS3 store of {LRS3_TRAIN_CLIPS} + {LRS3_VAL_CLIPS} clips, T in "
+          f"{LRS3_FRAMES}, {n_bytes / 2**20:.1f} MiB written in {time.perf_counter() - t0:.1f} s; "
+          f"{len(ds.batches)} train batches at max_tokens 60000 of "
+          f"{[len(x) for x in ds.batches]} clips; host data ms per batch (read + collate; "
+          f"clips, padded frames) " + json.dumps([[round(h[0], 3), h[1], h[2]] for h in host]))
+
+    runs = {}
+    plan = [("syncnet", {}),
+            ("vae", {"syncnet_work_dir": os.path.join(work, "syncnet")}),
+            ("postnet", {"syncnet_work_dir": os.path.join(work, "syncnet"),
+                         "audio2motion_work_dir": os.path.join(work, "vae")}),
+            ("pitch_vae", {"syncnet_work_dir": os.path.join(work, "syncnet")}),
+            ("pitch_postnet", {"syncnet_work_dir": os.path.join(work, "syncnet"),
+                               "audio2motion_work_dir": os.path.join(work, "pitch_vae")})]
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    want = {"gather_rows": 0, "scatter_add_rows": 0}
+    tasks = {}
+    for name, over in plan:
+        tcfg = audio_task_cfg(name, store, work, **over)
+        task = resolve_task(tcfg["task_cls"])(tcfg)  # cuda
+        step_ms = []
+        real_step = task.train_step
+
+        def timed(batch, real_step=real_step, step_ms=step_ms):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            m = real_step(batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            return m
+
+        task.train_step = timed
+        frozen = {}
+        real_build = task.build
+
+        def build(task=task, real_build=real_build, frozen=frozen):
+            real_build()
+            for mod in ("syncnet", "vae"):
+                if hasattr(task, mod):
+                    frozen[mod] = {n: p.detach().clone()
+                                   for n, p in getattr(task, mod).named_parameters()}
+
+        task.build = build
+        t1 = time.perf_counter()
+        if Trainer(task).fit() != AUDIO_TRAIN_STEPS[name]:
+            raise AssertionError(f"{path}.{name}: the run did not reach its last step")
+        fit_s = time.perf_counter() - t1
+        task.train_step = real_step
+        steps = AUDIO_TRAIN_STEPS[name]
+        # launches: two clip gathers per step (and per validation of
+        # SyncNet and the VAE: the post-net's validation gathers none), one
+        # scatter-add per step of the tasks that train through the clips
+        val = 0 if "postnet" in name else 1
+        want["gather_rows"] += 2 * (steps + val)
+        want["scatter_add_rows"] += 0 if name == "syncnet" else steps
+        # the frozen upstreams: unmoved, and equal to their runs' checkpoints
+        upstream = {"syncnet": over.get("syncnet_work_dir"),
+                    "vae": over.get("audio2motion_work_dir")}
+        for mod, ps in frozen.items():
+            net = getattr(task, mod)
+            moved = [n for n, p in net.named_parameters() if not torch.equal(p, ps[n])]
+            ref = load_checkpoint(get_last_checkpoint(upstream[mod]))["state"]["params"]
+            differ = trees_differ(flax_variables(net), ref)
+            if moved or differ:
+                raise AssertionError(f"{path}.{name}: frozen {mod} moved {moved[:5]}, differs "
+                                     f"from its checkpoint in {differ[:5]}")
+        rows = [json.loads(x) for x in open(os.path.join(tcfg["work_dir"], "metrics.jsonl"))]
+        losses = {k: v for r in rows for k, v in r.items()
+                  if k.startswith(("tr/", "val/")) and k != "tr/steps_per_sec"}
+        if not losses or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{path}.{name}: losses {losses}")
+        median = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+        runs[name] = {"fit_s": fit_s, "step_ms": step_ms, "median_step_ms": median,
+                      "frozen_checked": sorted(frozen), "metrics": losses}
+        tasks[name] = task
+        print(f"{path}.{name}: {steps} steps through Trainer.fit in {fit_s:.3f} s; median "
+              f"ms/step {median:.3f} (first two left out), steps "
+              + json.dumps([round(x, 3) for x in step_ms]) + "; logged "
+              + json.dumps({k: round(v, 5) for k, v in losses.items()}))
+    launches = dict(LAUNCHES)
+    if launches != want or not all(launches.values()):
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+
+    sites, checks, profiles = {}, {}, {}
+    for name, task in tasks.items():
+        it = task.train_batches(0)
+        lrs3, person = next(it), next(it)
+        checks[name] = audio_step_vs_cpu(name, task, lrs3, person)
+        batch = next(it)
+        task.train_step(batch)  # warm
+        wall = runs[name]["median_step_ms"]
+        kernels, spans, busy = kernel_table(profiled(
+            lambda: task.train_step(batch), [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        with open(os.path.join(out_dir, f"{path}_{name}_step_profile.txt"), "w") as f:
+            f.write(f"{name} step wall (median) {wall:.3f} ms, device busy "
+                    f"{fmt_ms(busy, ' ms')}\n")
+            for sname, ms in sorted(spans.items(), key=lambda s: -s[1]):
+                f.write(f"stage {sname:24s} {ms:9.3f} ms\n")
+            for kname, ms, n in kernels:
+                f.write(f"{ms:9.3f} ms {n:5d}x {kname}\n")
+        idle = None if busy is None else max(0.0, 1.0 - busy / wall)
+        profiles[name] = {"wall_ms": wall, "device_busy_ms": busy, "idle_share": idle,
+                          "spans_ms": spans,
+                          "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
+        print(f"{path}.{name}: step device time {fmt_ms(busy, ' ms')} of {wall:.3f} ms wall "
+              f"(idle share {fmt_ms(idle)}); spans ms "
+              + json.dumps({k: round(v, 3) for k, v in spans.items()}))
+        sites.update(name_sites(capture_calls(lambda: task.train_step(next(it))), {},
+                                f"{path}.{name}"))
+
+    # stage A from the trained VAE and post-net on audio_serve's wav
+    audio = os.path.join(root, "audio")
+    files = {"wav": os.path.join(audio, "speech.wav"), "hubert": os.path.join(audio, "hubert.pkl")}
+    if not all(os.path.exists(f) for f in files.values()):
+        files = write_audio_models(audio)
+    os.environ["GF_HUBERT_CKPT"] = files["hubert"]
+    pcfg = audio_task_cfg("postnet", store, work, audio2motion_work_dir=os.path.join(
+        work, "vae"), postnet_work_dir=os.path.join(work, "postnet"))
+    npy = os.path.join(work, "pred_lm3d.npy")
+    t1 = time.perf_counter()
+    lm3d = PostnetInfer(pcfg).infer(wav_path=files["wav"], out_npy=npy, seed=0)
+    infer_s = time.perf_counter() - t1
+    wav = load_wav16k(files["wav"])
+    n_rows = (min(2 * ((len(wav) - 400) // 320 + 1), 1 + len(wav) // 160) // 16) * 16
+    if lm3d.shape != (n_rows // 2, 68, 3) or not np.isfinite(lm3d).all():
+        raise AssertionError(f"{path}: PostnetInfer gave {lm3d.shape}")
+    card = PostnetInfer(pcfg)
+    cpu = PostnetInfer(pcfg, device="cpu")
+    hubert = extract_hubert(wav, model=load_hubert(files["hubert"], "cuda"))[:n_rows]
+    f0 = extract_f0(wav)[:n_rows]
+    from geneface_tpu_torch.inference.audio2motion_infer import prior_noise
+
+    noise = prior_noise(card.vae, n_rows // 2, 0)
+    got = card.refine(card.sample(hubert, f0, noise), f0)
+    ref = cpu.refine(cpu.sample(hubert, f0, noise), f0)
+    err = float(np.abs(got - ref).max())
+    if not err <= 1e-5 * float(np.abs(ref).max()):
+        raise AssertionError(f"{path}: trained stage A card vs CPU {err}")
+    print(f"{path}: PostnetInfer of the {AUDIO_SECONDS} s wav from the trained VAE and "
+          f"post-net: lm3d {lm3d.shape} in {infer_s:.3f} s (HuBERT read included); card vs "
+          f"CPU max abs {err:.3e} (bound 1e-5 of max |ref| {float(np.abs(ref).max()):.3e})")
+    record = {"store_mib": n_bytes / 2**20, "train_batches": [len(x) for x in ds.batches],
+              "host_data_ms": host, "runs": runs, "card_vs_cpu": checks,
+              "step_profiles": profiles, "infer_s": infer_s,
+              "infer_card_vs_cpu_max_abs": err, "lm3d_shape": list(lm3d.shape)}
     return record, launches, sites
 
 
@@ -1915,6 +2360,7 @@ def main() -> int:
                   ("torso_serve", serve_phase, torso_cfg(cfg)),
                   ("torso_train", train_phase, torso_cfg(cfg)),
                   ("audio_serve", audio_serve_phase, torso_cfg(cfg)),
+                  ("audio_train", audio_train_phase, cfg),
                   ("train_lip", train_lip_phase, cfg),
                   ("import_serve", import_serve_phase, import_cfg(cfg)),
                   ("import_train", import_train_phase, import_cfg(cfg))]

@@ -32,6 +32,13 @@ their submodules as flax does, so :func:`load_flax_variables` and
   ``batch_stats`` ``mean``/``var`` ↔ ``running_mean``/``running_var``;
 - ``Embedding``: ``embedding`` ↔ ``weight``.
 
+SyncNet (``ConvBlock_0..25``, each ``Conv_0`` and ``LayerNorm_0`` or
+``BatchNorm_0``) and the post-net's ``MLPDiscriminator`` (``Dense_0..3``
+with bias, ``Dense_4`` without) are mapped the same way, by their flax
+names. :func:`flax_param_tree` and :func:`param_values_from_flax` map any
+per-parameter tensors of such a model (the optimizers' moments) to and from
+the same layout.
+
 LPIPS (:mod:`geneface_tpu_torch.models.lpips`): :func:`lpips_state_dict` and
 :func:`lpips_flax_params` map the flax tree ``alex/conv{i}/{kernel,bias}``
 (kernel HWIO) and ``lin{i}`` ↔ ``alex.conv{i}.{weight,bias}`` (weight
@@ -52,6 +59,8 @@ __all__ = [
     "state_dict_to_flax",
     "load_flax_variables",
     "flax_variables",
+    "flax_param_tree",
+    "param_values_from_flax",
     "lpips_state_dict",
     "lpips_flax_params",
 ]
@@ -180,16 +189,8 @@ def load_flax_variables(model: nn.Module, variables: dict, assign: bool = False)
         # on large kernels)
         p = {k: torch.as_tensor(np.asarray(v)) for k, v in _subtree(params, path).items()}
         pre = ".".join(path)
-        if isinstance(m, nn.ConvTranspose1d):
-            sd[f"{pre}.weight"] = p["kernel"].flip(0).permute(1, 2, 0)
-        elif isinstance(m, nn.Conv1d):
-            sd[f"{pre}.weight"] = p["kernel"].permute(2, 1, 0)
-        elif isinstance(m, nn.Linear):
-            sd[f"{pre}.weight"] = p["kernel"].T
-        elif isinstance(m, nn.Embedding):
-            sd[f"{pre}.weight"] = p["embedding"]
-        else:  # the norms
-            sd[f"{pre}.weight"] = p["scale"]
+        leaf, _, from_flax = _kernel_maps(m)
+        sd[f"{pre}.weight"] = from_flax(p[leaf])
         if "bias" in p:
             sd[f"{pre}.bias"] = p["bias"]
         used += len(p)
@@ -210,33 +211,71 @@ def load_flax_variables(model: nn.Module, variables: dict, assign: bool = False)
 def flax_variables(model: nn.Module) -> dict:
     """Inverse of :func:`load_flax_variables` → ``{"params": tree}`` (plus
     ``"batch_stats"`` where the model has BatchNorm), numpy leaves."""
-    params: dict = {}
+    tree = flax_param_tree(model, dict(model.named_parameters()))
     stats: dict = {}
-
-    def put(tree, path, leaf, t):
-        node = tree
-        for p in path:
-            node = node.setdefault(p, {})
-        node[leaf] = np.array(t.detach().cpu().numpy() if torch.is_tensor(t) else t, order="C")
-
     for path, m in _module_leaves(model):
-        w = m.weight.detach().cpu().numpy()
-        if isinstance(m, nn.ConvTranspose1d):
-            put(params, path, "kernel", w.transpose(2, 0, 1)[::-1])
-        elif isinstance(m, nn.Conv1d):
-            put(params, path, "kernel", w.transpose(2, 1, 0))
-        elif isinstance(m, nn.Linear):
-            put(params, path, "kernel", w.T)
-        elif isinstance(m, nn.Embedding):
-            put(params, path, "embedding", w)
-        else:
-            put(params, path, "scale", w)
-        if getattr(m, "bias", None) is not None:
-            put(params, path, "bias", m.bias)
         if isinstance(m, nn.BatchNorm1d):
-            put(stats, path, "mean", m.running_mean)
-            put(stats, path, "var", m.running_var)
-    return {"params": params, "batch_stats": stats} if stats else {"params": params}
+            node = stats
+            for p in path:
+                node = node.setdefault(p, {})
+            node["mean"] = np.array(m.running_mean.detach().cpu().numpy(), order="C")
+            node["var"] = np.array(m.running_var.detach().cpu().numpy(), order="C")
+    return dict(tree, batch_stats=stats) if stats else tree
+
+
+def _kernel_maps(m: nn.Module) -> tuple:
+    """(flax leaf of ``m.weight``, torch → flax, flax → torch) for a module
+    of :func:`_module_leaves`."""
+    if isinstance(m, nn.ConvTranspose1d):
+        return ("kernel", lambda w: w.permute(2, 0, 1).flip(0),
+                lambda k: k.flip(0).permute(1, 2, 0))
+    if isinstance(m, nn.Conv1d):
+        return "kernel", lambda w: w.permute(2, 1, 0), lambda k: k.permute(2, 1, 0)
+    if isinstance(m, nn.Linear):
+        return "kernel", lambda w: w.T, lambda k: k.T
+    if isinstance(m, nn.Embedding):
+        return "embedding", lambda w: w, lambda k: k
+    return "scale", lambda w: w, lambda k: k
+
+
+def flax_param_tree(model: nn.Module, values: dict) -> dict:
+    """Tensors shaped as ``model``'s parameters, ``{parameter name:
+    tensor}`` (optimizer moments), → ``{"params": tree}`` of numpy leaves in
+    the layout :func:`flax_variables` gives the parameters themselves."""
+    tree: dict = {}
+    for path, m in _module_leaves(model):
+        pre = ".".join(path)
+        leaf, to_flax, _ = _kernel_maps(m)
+        for attr, name in (("weight", leaf), ("bias", "bias")):
+            t = values.get(f"{pre}.{attr}")
+            if t is None:
+                continue
+            if attr == "weight":
+                t = to_flax(t.detach())
+            node = tree
+            for p in path:
+                node = node.setdefault(p, {})
+            node[name] = np.array(t.detach().cpu().numpy(), order="C")
+    return {"params": tree}
+
+
+def param_values_from_flax(model: nn.Module, tree: dict) -> dict:
+    """Inverse of :func:`flax_param_tree` → ``{parameter name: numpy array}``
+    of every leaf the tree holds."""
+    params = tree.get("params", tree)
+    out = {}
+    for path, m in _module_leaves(model):
+        try:
+            node = _subtree(params, path)
+        except KeyError:
+            continue
+        pre = ".".join(path)
+        leaf, _, from_flax = _kernel_maps(m)
+        if leaf in node:
+            out[f"{pre}.weight"] = from_flax(torch.as_tensor(np.asarray(node[leaf]))).numpy()
+        if "bias" in node:
+            out[f"{pre}.bias"] = np.asarray(node["bias"])
+    return {k: np.array(v, order="C") for k, v in out.items()}
 
 
 def lpips_state_dict(params: dict) -> dict:

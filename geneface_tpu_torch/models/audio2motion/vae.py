@@ -1,24 +1,33 @@
-"""Audio2Motion VAE, inference side (port of
-``geneface_tpu/models/audio2motion/vae.py``).
+"""Audio2Motion VAE (port of ``geneface_tpu/models/audio2motion/vae.py``).
 
 ``VAEModel`` and ``PitchContourVAEModel`` encode HuBERT features (plus the
 f0 contour for the pitch variant) into a 64- (96-) channel condition at
-half the HuBERT rate; ``FVAE`` samples its latent prior at a quarter of
-that rate, inverts the flow prior (``ResidualCouplingBlock``) and decodes
-through the ×4 transposed-conv pre-net and a WaveNet core into landmark
-frames. The prior noise is an explicit tensor: RNG cannot match across
-frameworks, so the inference classes draw it from a seeded
-``torch.Generator`` and the tests pass the JAX draw. The training branch (posterior encoder and
-KL) raises ``NotImplementedError``; ``FVAEEncoder`` is defined, with its
-forward, so that a checkpoint loads whole.
+half the HuBERT rate. ``FVAE`` works at a quarter of that rate:
+
+- training (``FVAE.forward``, ``train=True`` in the models): the posterior
+  ``FVAEEncoder`` encodes the landmarks into ``z_q = m_q + ε·exp(logs_q)``,
+  the decoder reconstructs them from ``z_q`` (or its attention-pooled style
+  with ``sqz_prior``), and the KL is ``log q(z_q) - log N(flow(z_q))``
+  through the flow prior run forward, normalized by the latent frames and
+  ``latent_size`` (without the flow, the closed form against ``N(0, 1)``);
+- inference (``FVAE.infer``): the prior noise through the inverted flow and
+  the decoder.
+
+The noise (``ε`` of the posterior, or the prior's) is an explicit tensor:
+RNG cannot match across frameworks, so the tasks and the inference classes
+draw it from a seeded ``torch.Generator`` and the tests pass the JAX draw
+(JAX draws the posterior's from ``split(rng)[0]``).
 
 Layout: the models take the JAX batch (channel-last ``hubert [B, 2T,
-1024]``, ``f0 [B, 2T]``, ``y_mask [B, T]``) and return channel-last
-``pred [B, T, C]`` and ``z_p [B, T/4, 16]``; inside everything is
-channel-first ``[B, C, T]``. Submodules carry the flax names.
+1024]``, ``f0 [B, 2T]``, ``y [B, T, C]``, ``y_mask [B, T]``) and noise
+``[B, T_sqz, 16]``, and return channel-last ``pred [B, T, C]``, ``z_p`` and
+``m_q`` ``[B, T_sqz, 16]``; inside everything is channel-first
+``[B, C, T]``. Submodules carry the flax names.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
@@ -125,9 +134,24 @@ class FVAE(nn.Module):
         attn = torch.softmax(q @ k.transpose(1, 2), dim=-1)  # [B, 1, T]
         return (attn @ v).transpose(1, 2).expand(-1, -1, zt.shape[1])
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the VAE's training branch (posterior and KL) is not ported; use infer()")
+    def forward(self, x, x_mask, g, noise):
+        """Training: x [B, C, T], x_mask [B, 1, T], g [B, C_g, T], noise
+        [B, L, T_sqz] standard normal → (x_recon [B, C, T], loss_kl,
+        z_p [B, L, T_sqz], m_q, logs_q)."""
+        g_sqz = self.g_pre_net(g)
+        z_q, m_q, logs_q, mask_sqz = self.encoder(x, x_mask, g_sqz, noise)
+        dec_in = self._style_pool(z_q) if self.sqz_prior else z_q
+        x_recon = self.decoder(dec_in, x_mask, g)
+        if self.use_prior_glow:
+            z_p = self.prior_flow(z_q, mask_sqz, g=g_sqz, reverse=False)
+            kl = _normal_logprob(z_q, m_q, logs_q) - _normal_logprob(
+                z_p, 0.0, torch.zeros_like(z_p))
+        else:
+            z_p = z_q
+            kl = -logs_q - 0.5 + 0.5 * (torch.exp(2 * logs_q) + m_q**2)
+        loss_kl = ((kl * mask_sqz).sum() / torch.clamp(mask_sqz.sum(), min=1.0)
+                   / self.latent_size)
+        return x_recon, loss_kl, z_p, m_q, logs_q
 
     def infer(self, x_mask, g, noise, temperature: float = 1.0):
         """x_mask [B, 1, T], g [B, C_g, T], noise [B, T_sqz, L] standard normal
@@ -138,6 +162,10 @@ class FVAE(nn.Module):
             z_p = self.prior_flow(z_p, torch.ones_like(z_p[:, :1]), g=g_sqz, reverse=True)
         dec_in = self._style_pool(z_p) if self.sqz_prior else z_p
         return self.decoder(dec_in, x_mask, g), z_p
+
+
+def _normal_logprob(x, mean, logs):
+    return -0.5 * (math.log(2 * math.pi) + 2 * logs + ((x - mean) ** 2) * torch.exp(-2 * logs))
 
 
 def _downsample2(x):
@@ -174,15 +202,23 @@ class _VAEModelBase(nn.Module):
     hubert_dim = 1024
 
     def noise_shape(self, batch_size: int, n_frames: int) -> tuple:
-        """Shape of the standard-normal prior noise for ``n_frames`` output
-        frames: ``(B, T_sqz, 16)``, as the JAX body draws it."""
+        """Shape of the standard-normal noise (the prior's, or the
+        posterior's in training) for ``n_frames`` output frames:
+        ``(B, T_sqz, 16)``, as the JAX body draws it."""
         return (batch_size, self.vae.latent_length(n_frames), self.vae.latent_size)
 
     def forward(self, batch, noise, train: bool = False, temperature: float = 1.0):
-        """Inference: → ``{"pred" [B, T, C], "mask" [B, T], "z_p" [B, T_sqz, 16]}``."""
-        if train:
-            raise NotImplementedError("VAE training (the KL branch) is not ported")
+        """Inference: → ``{"pred" [B, T, C], "mask" [B, T], "z_p" [B, T_sqz,
+        16]}``; ``train`` (``batch["y"]`` the landmarks, ``noise`` the
+        posterior's): also ``"loss_kl"`` and ``"m_q"``, ``pred`` the
+        reconstruction."""
         mask = batch["y_mask"]
+        if train:
+            x_recon, loss_kl, z_p, m_q, _ = self.vae(
+                batch["y"].transpose(1, 2), mask[:, None], self.cond_feats(batch),
+                noise.transpose(1, 2))
+            return {"pred": x_recon.transpose(1, 2) * mask[..., None], "loss_kl": loss_kl,
+                    "mask": mask, "m_q": m_q.transpose(1, 2), "z_p": z_p.transpose(1, 2)}
         x_recon, z_p = self.vae.infer(mask[:, None], self.cond_feats(batch), noise, temperature)
         return {"pred": x_recon.transpose(1, 2) * mask[..., None], "mask": mask,
                 "z_p": z_p.transpose(1, 2)}

@@ -1,13 +1,15 @@
 """Person-specific post-net, inference side (port of
 ``geneface_tpu/models/postnet/models.py``): ``CNNPostNet`` and
 ``PitchContourCNNPostNet``, 1-D conv stacks that predict a landmark delta,
-``refined = x + Δ``, with the all-zero (padding) frames masked out.
-``MLPDiscriminator`` belongs to the adversarial training, not ported.
+``refined = x + Δ``, with the all-zero (padding) frames masked out; and
+``MLPDiscriminator``, the frame-wise real/fake head of the adversarial
+training.
 
 Layout: channel-last ``[B, T, C]`` at the boundary, as the JAX modules;
 channel-first inside. ``norm`` ``"ln"`` is flax's ``LayerNorm()``
 (epsilon 1e-6), ``"bn"`` BatchNorm on running statistics (epsilon 1e-5).
-Submodules carry the flax names (``_RefinerCore_0._ConvBlock_<i>.Conv_0``).
+Submodules carry the flax names (``_RefinerCore_0._ConvBlock_<i>.Conv_0``,
+the discriminator's ``Dense_0..4``).
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ from torch import nn
 
 from geneface_tpu_torch.models.layers import PadConv1d, channel_norm
 
-__all__ = ["CNNPostNet", "PitchContourCNNPostNet"]
+__all__ = ["CNNPostNet", "PitchContourCNNPostNet", "MLPDiscriminator"]
 
 
 class _ConvBlock(nn.Module):
@@ -86,3 +88,29 @@ class PitchContourCNNPostNet(nn.Module):
         xc = x.transpose(1, 2)
         inp = torch.cat([x, pitch], dim=-1).transpose(1, 2)
         return self._RefinerCore_0(inp, xc, _frame_mask(x)).transpose(1, 2)
+
+
+class MLPDiscriminator(nn.Module):
+    """Four leaky-ReLU (0.2) dense layers (128, 256, 256, 128) and a
+    bias-free head, frame by frame. The JAX module's dropout (0.25) runs
+    only when it is called with ``deterministic=False``, which its task
+    never does, so it is left out."""
+
+    WIDTHS = (128, 256, 256, 128)
+
+    def __init__(self, in_dim: int = 64):
+        super().__init__()
+        cin = in_dim
+        for i, w in enumerate(self.WIDTHS):
+            self.add_module(f"Dense_{i}", nn.Linear(cin, w))
+            cin = w
+        self.add_module(f"Dense_{len(self.WIDTHS)}", nn.Linear(cin, 1, bias=False))
+
+    def forward(self, x):
+        """x [B, T, C] → (validity [B, T, 1], frame mask [B, T], True where
+        a frame has a non-zero entry)."""
+        mask = x.abs().sum(-1) != 0
+        h = x
+        for i in range(len(self.WIDTHS)):
+            h = F.leaky_relu(getattr(self, f"Dense_{i}")(h), 0.2)
+        return getattr(self, f"Dense_{len(self.WIDTHS)}")(h), mask

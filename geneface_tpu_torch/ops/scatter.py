@@ -71,6 +71,13 @@ SORTED_MIN_UPDATE_BYTES = 1 << 26
 SORT_THREADS = 1024
 #: row widths the ``runs`` variant is compiled for
 RUNS_WIDTHS = (2, 6)
+#: ``vec`` is chosen from this many updates on: its walk gives a warp 32
+#: updates and a lane group walks up to 32 of them in series, so a smaller
+#: call (fewer warps than SMs) waits on that walk, where ``atomic`` spreads
+#: one atomic per element over the card (stage A's mouth clip adjoint,
+#: 320 updates of 60 columns: ``atomic`` 0.0030 ms, ``vec`` 0.0053 on an
+#: H100 80GB HBM3 at 700 W)
+VEC_MIN_UPDATES = 4096
 
 
 def scatter_add_rows_plain(
@@ -141,9 +148,10 @@ def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bo
     - rows of at least ``SORTED_MIN_WIDTH`` columns with at least
       ``SORTED_MIN_UPDATE_BYTES`` of updates and a table of at most 58,112
       rows: ``sorted``;
-    - any other even ``W``: ``vec`` (16-byte vector atomics where
-      ``W % 4 == 0``, 8-byte ones else), which merges equal neighbouring
-      rows in registers.
+    - any other even ``W`` with at least ``VEC_MIN_UPDATES`` updates:
+      ``vec`` (16-byte vector atomics where ``W % 4 == 0``, 8-byte ones
+      else), which merges equal neighbouring rows in registers; fewer
+      updates take ``atomic``.
     """
     if not aligned or W % 2 or M == 0 or W == 0 or n_rows == 0:
         return "atomic"
@@ -156,7 +164,7 @@ def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bo
     if (W >= SORTED_MIN_WIDTH and M * W * itemsize >= SORTED_MIN_UPDATE_BYTES
             and scatter_variant_accepts("sorted", M, W, n_rows, itemsize, aligned)):
         return "sorted"
-    return "vec"
+    return "vec" if M >= VEC_MIN_UPDATES else "atomic"
 
 
 def smem_plan(M: int, W: int, n_rows: int, vec_width: int, sm_count: int) -> tuple:

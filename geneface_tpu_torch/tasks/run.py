@@ -8,7 +8,12 @@ package's class path) selects the port's task through :data:`TASKS`, and the
 task trains under the :class:`~geneface_tpu_torch.training.trainer.Trainer`
 in ``checkpoints/<exp_name>``, or with ``--infer`` runs the task's
 ``run_inference`` (the post-net: wav → lm3d ``.npy``; RAD-NeRF: lm3d →
-video). Both run on ``cuda`` unless ``--device cpu`` is given.
+video). Both run on ``cuda`` unless ``--device cpu`` is given. Stage A
+trains in the order its tasks load each other: SyncNet
+(``egs/datasets/lrs3/lm3d_syncnet.yaml``), then the VAE
+(``lm3d_vae_sync.yaml``, ``syncnet_work_dir``), then the post-net
+(``egs/datasets/videos/May/lm3d_postnet_sync.yaml``,
+``audio2motion_work_dir`` and ``syncnet_work_dir``).
 """
 
 from __future__ import annotations
@@ -17,9 +22,11 @@ import argparse
 import os
 
 from geneface_tpu_torch.config.config import load_config
+from geneface_tpu_torch.tasks.audio2motion import PitchContourVAESyncTask, VAESyncAudio2MotionTask
 from geneface_tpu_torch.tasks.postnet import PostnetAdvSyncTask
 from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
 from geneface_tpu_torch.tasks.radnerf_torso import RADNeRFTorsoTask
+from geneface_tpu_torch.tasks.syncnet import SyncNetTask
 from geneface_tpu_torch.training.trainer import Trainer
 
 __all__ = ["TASKS", "resolve_task", "main"]
@@ -29,6 +36,9 @@ TASKS = {
     "geneface_tpu.tasks.radnerf.RADNeRFTask": RADNeRFTask,
     "geneface_tpu.tasks.radnerf_torso.RADNeRFTorsoTask": RADNeRFTorsoTask,
     "geneface_tpu.tasks.postnet.PostnetAdvSyncTask": PostnetAdvSyncTask,
+    "geneface_tpu.tasks.syncnet.SyncNetTask": SyncNetTask,
+    "geneface_tpu.tasks.audio2motion.VAESyncAudio2MotionTask": VAESyncAudio2MotionTask,
+    "geneface_tpu.tasks.audio2motion.PitchContourVAESyncTask": PitchContourVAESyncTask,
 }
 
 

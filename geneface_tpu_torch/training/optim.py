@@ -1,4 +1,5 @@
-"""Multi-group Adam (port of ``geneface_tpu/training/optim.py``).
+"""Multi-group Adam and RMSprop (port of ``geneface_tpu/training/optim.py``
+and of the optax optimizers the audio tasks build).
 
 The JAX package chains ``optax.multi_transform`` of per-group
 ``scale_by_adam`` + ``scale_by_learning_rate(schedule · mult)`` behind
@@ -18,11 +19,19 @@ MultiSteps' running mean, and every k-th accepted micro-step applies Adam
 parameters, the moments and the count as they were.
 
 :meth:`MultiGroupAdam.state_dict` is the checkpoint's ``opt_state``: plain
-numpy in the flax parameter layout, ``{count, skipped, mu, nu}`` (plus
-``mini_step`` and ``acc_grads`` when accumulating);
+numpy in the flax parameter layout (RAD-NeRF's, or with ``layout`` an audio
+model's), ``{count, skipped, mu, nu}`` (plus ``mini_step`` and
+``acc_grads`` when accumulating);
 :meth:`~MultiGroupAdam.load_state_dict` reads it back, or the Adam state of
 a JAX trainer's checkpoint (see
 :func:`geneface_tpu_torch.utils.checkpoint.adam_state_from_optax`).
+
+The audio tasks' optimizers: SyncNet and the VAE use ``optax.adam`` with the
+config's betas and eps 1e-8 behind ``finalize_optimizer`` only, so no
+clipping although the configs set ``clip_grad_norm`` (:func:`build_adam`);
+the post-net's generator and discriminator use ``optax.rmsprop`` (decay
+0.9, eps 1e-8 inside the root, initial scale 0; :class:`RMSprop`), which
+``torch.optim.RMSprop`` is not (alpha 0.99, eps outside the root).
 """
 
 from __future__ import annotations
@@ -32,13 +41,21 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
-from geneface_tpu_torch.convert import flax_path, flax_to_state_dict, state_dict_to_flax
+from geneface_tpu_torch.convert import (
+    flax_param_tree,
+    flax_path,
+    flax_to_state_dict,
+    param_values_from_flax,
+    state_dict_to_flax,
+)
 
 __all__ = [
     "radnerf_label_fn",
     "torso_label_fn",
     "param_groups",
     "MultiGroupAdam",
+    "RMSprop",
+    "build_adam",
     "build_optimizer",
     "build_torso_optimizer",
 ]
@@ -87,14 +104,17 @@ class MultiGroupAdam(torch.optim.Optimizer):
     first (optax ``clip`` / ``clip_by_global_norm``); ``guard_nan_grads``
     skips a step whose incoming gradients are not all finite;
     ``accumulate_grad_batches`` > 1 applies Adam to the mean of that many
-    accepted micro-batches (optax ``MultiSteps``).
+    accepted micro-batches (optax ``MultiSteps``). ``layout``: the audio
+    model whose flax layout (:func:`flax_param_tree`) the checkpointed
+    moments take; ``None`` is RAD-NeRF's (:func:`state_dict_to_flax`).
     """
 
     def __init__(self, groups: list, schedule: Callable, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-15, clip_grad_norm: float = 0.0,
                  clip_grad_value: float = 0.0, guard_nan_grads: bool = True,
-                 accumulate_grad_batches: int = 1):
+                 accumulate_grad_batches: int = 1, layout: torch.nn.Module | None = None):
         super().__init__(groups, dict(mult=1.0))
+        self.layout = layout
         self.schedule = schedule
         self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
         self.clip_grad_norm = float(clip_grad_norm)
@@ -177,6 +197,16 @@ class MultiGroupAdam(torch.optim.Optimizer):
         return [(n, p) for g in self.param_groups
                 for n, p in zip(g["param_names"], g["params"])]
 
+    def _to_flax(self, values: dict) -> dict:
+        if self.layout is None:
+            return state_dict_to_flax(values)
+        return flax_param_tree(self.layout, values)
+
+    def _from_flax(self, tree: dict) -> dict:
+        if self.layout is None:
+            return flax_to_state_dict(tree)
+        return param_values_from_flax(self.layout, tree)
+
     def state_dict(self) -> dict:
         """``{count, skipped, mu, nu}`` as numpy, ``mu``/``nu`` flax trees
         ``{"params": ...}`` of the parameters it updates (plus ``mini_step``
@@ -185,12 +215,12 @@ class MultiGroupAdam(torch.optim.Optimizer):
         out = {
             "count": self.count.cpu().numpy(),
             "skipped": self.skipped.cpu().numpy(),
-            "mu": state_dict_to_flax({n: self._slots(p)["mu"] for n, p in named}),
-            "nu": state_dict_to_flax({n: self._slots(p)["nu"] for n, p in named}),
+            "mu": self._to_flax({n: self._slots(p)["mu"] for n, p in named}),
+            "nu": self._to_flax({n: self._slots(p)["nu"] for n, p in named}),
         }
         if self.accumulate > 1:
             out["mini_step"] = self.mini_step.cpu().numpy()
-            out["acc_grads"] = state_dict_to_flax({n: self._slots(p)["acc"] for n, p in named})
+            out["acc_grads"] = self._to_flax({n: self._slots(p)["acc"] for n, p in named})
         return out
 
     def load_state_dict(self, state: dict) -> None:
@@ -199,12 +229,12 @@ class MultiGroupAdam(torch.optim.Optimizer):
         be there; moments of other parameters (a JAX torso checkpoint's
         frozen head) are ignored."""
         dev = self.count.device
-        trees = {k: flax_to_state_dict(state[k]) for k in ("mu", "nu")}
+        trees = {k: self._from_flax(state[k]) for k in ("mu", "nu")}
         if self.accumulate > 1:
             if "acc_grads" not in state:
                 raise ValueError("the checkpoint holds no accumulated gradients "
                                  f"(accumulate_grad_batches {self.accumulate})")
-            trees["acc"] = flax_to_state_dict(state["acc_grads"])
+            trees["acc"] = self._from_flax(state["acc_grads"])
         elif "acc_grads" in state:
             raise ValueError("the checkpoint was written with accumulate_grad_batches > 1")
         for n, p in self._named():
@@ -219,6 +249,92 @@ class MultiGroupAdam(torch.optim.Optimizer):
         self.skipped = torch.as_tensor(np.asarray(state["skipped"]), dtype=torch.int32).to(dev)
         self.mini_step = torch.as_tensor(
             np.asarray(state.get("mini_step", 0)), dtype=torch.int32).to(dev)
+
+
+def build_adam(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:
+    """SyncNet's and the VAE's optimizer, ``finalize_optimizer(optax.adam(
+    schedule, b1, b2))``: one group, eps 1e-8, no clipping (optax.adam
+    applies none; the configs' ``clip_grad_norm`` is unread),
+    ``guard_nan_grads`` and ``accumulate_grad_batches``; moments in the
+    model's flax layout."""
+    names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
+    group = {"params": list(params), "name": "all", "mult": 1.0, "param_names": list(names)}
+    return MultiGroupAdam(
+        [group], schedule, b1=cfg.get("optimizer_adam_beta1", 0.9),
+        b2=cfg.get("optimizer_adam_beta2", 0.999), eps=1e-8,
+        guard_nan_grads=cfg.get("guard_nan_grads", True),
+        accumulate_grad_batches=int(cfg.get("accumulate_grad_batches", 1)), layout=model)
+
+
+class RMSprop(torch.optim.Optimizer):
+    """``apply_if_finite(optax.rmsprop(schedule))`` over every trainable
+    parameter of ``model``: ``ν ← 0.1·g² + 0.9·ν`` from ``ν = 0``, then
+    ``p ← p - schedule(count)·(g·rsqrt(ν + 1e-8))``. ``guard_nan_grads``
+    skips a step whose gradients are not all finite on the device (the
+    parameters, ``ν`` and the count stay, ``skipped`` counts it).
+    :meth:`state_dict` is ``{count, skipped, nu}``, ``nu`` in the model's
+    flax layout; :meth:`load_state_dict` reads it, or
+    ``utils.checkpoint.rms_state_from_optax`` of a JAX run's state.
+    ``accumulate_grad_batches > 1`` is not ported for RMSprop."""
+
+    #: optax.rmsprop's defaults, the post-net task's
+    DECAY = 0.9
+    EPS = 1e-8
+
+    def __init__(self, model: torch.nn.Module, schedule: Callable, guard_nan_grads: bool = True):
+        names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
+        super().__init__([{"params": list(params), "param_names": list(names)}], {})
+        self.layout = model
+        self.schedule = schedule
+        self.guard_nan_grads = bool(guard_nan_grads)
+        dev = params[0].device
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.skipped = torch.zeros((), dtype=torch.int32, device=dev)
+
+    def _nu(self, p: torch.Tensor) -> torch.Tensor:
+        st = self.state[p]
+        if "nu" not in st:
+            st["nu"] = torch.zeros_like(p)
+        return st["nu"]
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("RMSprop takes no closure")
+        params = self.param_groups[0]["params"]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        accept = ok if self.guard_nan_grads else torch.ones_like(ok)
+        step_size = -self.schedule(self.count.float())
+        for p, g in zip(params, grads):
+            nu = (1.0 - self.DECAY) * (g * g) + self.DECAY * self._nu(p)
+            upd = torch.rsqrt(nu + self.EPS) * g
+            p.copy_(torch.where(accept, p + step_size * upd, p))
+            self.state[p]["nu"] = torch.where(accept, nu, self.state[p]["nu"])
+        self.count = torch.where(accept, self.count + 1, self.count)
+        self.skipped = torch.where(accept, self.skipped, self.skipped + 1)
+
+    def state_dict(self) -> dict:
+        g = self.param_groups[0]
+        return {
+            "count": self.count.cpu().numpy(),
+            "skipped": self.skipped.cpu().numpy(),
+            "nu": flax_param_tree(self.layout, {
+                n: self._nu(p) for n, p in zip(g["param_names"], g["params"])}),
+        }
+
+    def load_state_dict(self, state: dict) -> None:
+        g = self.param_groups[0]
+        dev = self.count.device
+        nu = param_values_from_flax(self.layout, state["nu"])
+        for n, p in zip(g["param_names"], g["params"]):
+            if n not in nu:
+                raise KeyError(f"the optimizer state holds no nu of {n}")
+            if tuple(nu[n].shape) != tuple(p.shape):
+                raise ValueError(f"nu of {n}: {nu[n].shape} != {tuple(p.shape)}")
+            self.state[p]["nu"] = torch.as_tensor(nu[n], dtype=p.dtype).to(dev)
+        self.count = torch.as_tensor(np.asarray(state["count"]), dtype=torch.int32).to(dev)
+        self.skipped = torch.as_tensor(np.asarray(state["skipped"]), dtype=torch.int32).to(dev)
 
 
 def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:

@@ -4,18 +4,24 @@ A checkpoint is one pickled dict of numpy leaves. The JAX package pickles its
 ``OccupancyState`` and ``TorsoOccupancyState`` NamedTuples, may pickle
 flax ``FrozenDict`` nodes, and its trainer pickles optax's optimizer state
 (``ApplyIfFiniteState``, ``PartitionState``, ``MaskedState``,
-``ScaleByAdamState``, ``ScaleByScheduleState``, ``MaskedNode``,
-``EmptyState``, ``MultiStepsState``); the restricted unpickler here maps
+``ScaleByAdamState``, ``ScaleByRmsState``, ``ScaleByScheduleState``,
+``MaskedNode``, ``EmptyState``, ``MultiStepsState``); the restricted
+unpickler here maps
 each to a plain type of the port without importing either framework, and
 refuses every other global except numpy's array reconstruction helpers
 (unpickling can otherwise run arbitrary code). :func:`adam_state_from_optax`
 reads the Adam moments (and, from a ``MultiStepsState``, the gradient
-accumulator) out of such a tree.
+accumulator) out of such a tree, :func:`rms_state_from_optax` the RMSprop
+state of the post-net task's two optimizers.
 
 :func:`save_checkpoint` writes plain dicts/tuples of numpy arrays in the JAX
 layout — ``{"state": {"params": {"params": ...}, "occ": (density_grid,
 occ_grid, mean_density)}}``, plus ``"torso_occ": (density_grid,
-mean_density)`` for the torso — so the JAX ``RADNeRFInfer`` reads it as well.
+mean_density)`` for the torso — so the JAX ``RADNeRFInfer`` reads it as well;
+the audio tasks write ``{"params": ..., "opt_state": ...}`` (SyncNet, the
+VAE) and ``{"gen_params", "disc_params", "gen_opt", "disc_opt"}`` (the
+post-net), as the JAX tasks do, so each package loads the other's run as a
+frozen upstream.
 :class:`CheckpointManager` is the JAX trainer's keep-N + best-val policy.
 :func:`restore_partial` is the non-strict load of one parameter tree into
 another (the torso task's warm start from a head checkpoint).
@@ -39,6 +45,7 @@ __all__ = [
     "restore_partial",
     "CheckpointManager",
     "adam_state_from_optax",
+    "rms_state_from_optax",
 ]
 
 _STEP_RE = re.compile(r"model_ckpt_steps_(\d+)\.ckpt$")
@@ -80,6 +87,10 @@ class ScaleByAdamState(NamedTuple):
     nu: Any
 
 
+class ScaleByRmsState(NamedTuple):
+    nu: Any
+
+
 class ScaleByScheduleState(NamedTuple):
     count: Any
 
@@ -101,7 +112,7 @@ class MultiStepsState(NamedTuple):
 
 
 _OPTAX_STATES = {c.__name__: c for c in (
-    ApplyIfFiniteState, PartitionState, MaskedState, ScaleByAdamState,
+    ApplyIfFiniteState, PartitionState, MaskedState, ScaleByAdamState, ScaleByRmsState,
     ScaleByScheduleState, MaskedNode, EmptyState, MultiStepsState,
 )}
 
@@ -262,6 +273,8 @@ def _find_partition(state: Any, path: str = "opt_state") -> tuple:
         part, _, multi = _find_partition(state.inner_state, f"{path}.inner_state")
         return part, state, multi
     if isinstance(state, tuple):  # optax.chain: clipping's EmptyState first
+        if any(isinstance(s, ScaleByAdamState) for s in state):  # one group: optax.adam
+            return PartitionState({"all": state}), None, None
         found = [s for s in state if not isinstance(s, EmptyState)]
         if len(found) == 1:
             return _find_partition(found[0], path)
@@ -299,3 +312,25 @@ def adam_state_from_optax(state: Any) -> dict:
         out["mini_step"] = np.asarray(multi.mini_step, np.int32)
         out["acc_grads"] = multi.acc_grads
     return out
+
+
+def rms_state_from_optax(state: Any) -> dict:
+    """A JAX post-net run's pickled ``gen_opt`` / ``disc_opt``
+    (``apply_if_finite(chain(scale_by_rms, scale_by_learning_rate))``) →
+    :class:`~geneface_tpu_torch.training.optim.RMSprop`'s state ``{"count",
+    "skipped", "nu"}``: the schedule's count, ``total_notfinite``, and
+    ``ScaleByRmsState.nu`` (a flax tree)."""
+    guard = state if isinstance(state, ApplyIfFiniteState) else None
+    chain = state.inner_state if guard is not None else state
+    if isinstance(chain, MultiStepsState):
+        raise ValueError("accumulate_grad_batches > 1 with RMSprop is not ported")
+    chain = chain if isinstance(chain, tuple) else (chain,)
+    rms = [s for s in chain if isinstance(s, ScaleByRmsState)]
+    sched = [s for s in chain if isinstance(s, ScaleByScheduleState)]
+    if len(rms) != 1 or len(sched) != 1:
+        raise ValueError(f"not an optax.rmsprop state: {[type(s).__name__ for s in chain]}")
+    return {
+        "count": np.asarray(sched[0].count, np.int32),
+        "skipped": np.asarray(0 if guard is None else guard.total_notfinite, np.int32),
+        "nu": rms[0].nu,
+    }

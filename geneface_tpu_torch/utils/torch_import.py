@@ -35,6 +35,7 @@ __all__ = [
     "load_reference_checkpoint",
     "radnerf_params_from_torch",
     "postnet_params_from_torch",
+    "syncnet_params_from_torch",
     "fvae_params_from_torch",
     "vae_model_params_from_torch",
     "occupancy_from_torch",
@@ -361,6 +362,22 @@ def postnet_params_from_torch(sd: Mapping, variables: Mapping) -> dict:
         _import_convbn(sd, {f_block: params[f_block]}, {f_block: stats[f_block]}, t_key, f_block)
     _assign(params, ("Conv_0", "kernel"), _conv1d(sd, "block3.1.weight"), "block3.1.weight")
     _assign(params, ("Conv_0", "bias"), _arr(sd, "block3.1.bias"), "block3.1.bias")
+    return _finalize(tree)
+
+
+def syncnet_params_from_torch(sd: Mapping, variables: Mapping) -> dict:
+    """GeneFace ``LandmarkHubertSyncNet`` → the flax-layout variables on the
+    template ``variables`` (the port's ``flax_variables`` of a SyncNet built
+    with ``norm='bn'``): ``hubert_encoder.<i>`` → ``ConvBlock_<i>``,
+    ``mouth_encoder.<i>`` → ``ConvBlock_<13 + i>`` (the audio tower is
+    traced first in flax)."""
+    tree = _to_mutable(variables)
+    if "batch_stats" not in tree:
+        raise ValueError(f"variables have no batch_stats. {_BN_HINT}")
+    params, stats = tree["params"], tree["batch_stats"]
+    for i in range(13):
+        _import_convbn(sd, params, stats, f"hubert_encoder.{i}", f"ConvBlock_{i}")
+        _import_convbn(sd, params, stats, f"mouth_encoder.{i}", f"ConvBlock_{13 + i}")
     return _finalize(tree)
 
 

@@ -139,5 +139,9 @@ def test_vae_inference_matches_jax(pitch, norm):
     for k in ("z_p", "pred"):
         want = np.asarray(ref[k])
         np.testing.assert_allclose(out[k].numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
-    with pytest.raises(NotImplementedError):
-        m(tb, noise, train=True)
+    # the training branch runs on the landmarks (held to JAX in
+    # tests/test_torch_vae_train.py)
+    with torch.no_grad():
+        trained = m({k: torch.from_numpy(a) for k, a in batch.items()}, noise, train=True)
+    assert trained["pred"].shape == (1, T2 // 2, 204)
+    assert bool(torch.isfinite(trained["loss_kl"]))

@@ -387,3 +387,31 @@ def test_torso_frame_on_card_matches_cpu(card, tmp_path):
     torch.testing.assert_close(got["rgb_map"].cpu(), want["rgb_map"], rtol=0, atol=1e-5)
     torch.testing.assert_close(got["torso_alpha_map"].cpu(), want["torso_alpha_map"],
                                rtol=0, atol=1e-5)
+
+
+def test_clip_gathers_on_card_match_cpu(card):
+    """Stage A's clip gathers (K8) and the mouth clips' adjoint (K1) on the
+    card: the clips exact, the mouth gradient within the float32 rounding
+    of two summation orders (clips overlap in frames)."""
+    from geneface_tpu_torch.tasks.syncnet import gather_clips, mine_sync_clips
+
+    rng = np.random.RandomState(0)
+    B, T = 12, 96
+    mouth = torch.from_numpy(rng.randn(B, T, 60).astype(np.float32))
+    hubert = torch.from_numpy(rng.randn(B, 2 * T, 1024).astype(np.float32))
+    idx = mine_sync_clips(rng.randint(40, T + 1, B), 64, np.random.RandomState(1))[:4]
+    w = torch.from_numpy(rng.randn(64, 5, 60).astype(np.float32))
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        m = mouth.to(dev).requires_grad_(True)
+        before = dict(LAUNCHES)
+        mc, hc = gather_clips(m, hubert.to(dev), *idx)
+        (mc * w.to(dev)).sum().backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["gather_rows"] - before["gather_rows"] == 2
+            assert LAUNCHES["scatter_add_rows"] - before["scatter_add_rows"] == 1
+        out[dev.type] = (mc.detach().cpu(), hc.cpu(), m.grad.cpu())
+    for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-5, atol=1e-5)

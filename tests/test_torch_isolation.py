@@ -52,3 +52,15 @@ def test_walk_covers_the_import_path():
                  "geneface_tpu_torch.tools.validate_import", "geneface_tpu_torch.ops.encoders",
                  "geneface_tpu_torch.utils.checkpoint"):
         assert name in mods, name
+
+
+def test_walk_covers_stage_a_training():
+    """The LRS3 store, SyncNet, the training tasks of stage A and the
+    optimizers are among the modules imported above."""
+    mods = set(_port_modules())
+    for name in ("geneface_tpu_torch.utils.indexed_dataset",
+                 "geneface_tpu_torch.data.lrs3_dataset",
+                 "geneface_tpu_torch.models.syncnet.models",
+                 "geneface_tpu_torch.tasks.syncnet", "geneface_tpu_torch.tasks.audio2motion",
+                 "geneface_tpu_torch.tasks.postnet", "geneface_tpu_torch.training.optim"):
+        assert name in mods, name

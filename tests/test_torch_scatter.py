@@ -159,6 +159,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rows, upd, err):
         (32768, 32, 5832, "vec"),  # lip step, position dense group
         (32768, 224, 4096, "vec"),  # lip step, position hashed group
         (32768, 6, 4096, "runs"),  # lip step composite
+        (320, 60, 13120, "atomic"),  # stage A's mouth clip adjoint: too few updates for vec
+        (320, 60, 30464, "atomic"),  # the same on the store's larger batch
     ],
 )
 def test_variant_of_the_main_path_shapes(M, W, n_rows, want):
