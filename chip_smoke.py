@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's nine paths at the full width of
+Drives the port's ten paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, and of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -66,7 +66,23 @@ with random weights from a seeded ``torch.Generator``:
 - its fine-tune (``import_train``): the checkpoint's head imported again,
   restored into ``RADNeRFTask`` at its step, 20 steps of 65,536 rays under
   the import config (sweeps at steps 0 and 16), every loss finite, every
-  group's gradient non-zero, one step held against the CPU plain path.
+  group's gradient non-zero, one step held against the CPU plain path;
+- a person's dataset (``datagen``): a seeded 3DMM at BFM09's front widths
+  (35,709 vertices, 70,789 triangles, id/exp/tex 80/64/80), a 100-frame
+  512² video of it planted on the card at known parameters and a 4 s wav,
+  through ``process_frames`` (mel, f0, HuBERT-large; BiSeNet at seeded
+  weights as ``parse_fn``; the planted landmarks as ``lm_fn``;
+  ``fit_sequence`` and ``refine_photometric`` at their defaults: 11
+  focals × 300 steps, 700 joint steps, 150 + 2 × 80 photometric steps of
+  50 frames on the soft splat, whose normals and splat run on K1 and their
+  backward on K8), FAN at seeded weights on every frame,
+  ``extract_3dmm_coeffs`` (ResNet-50, batches of 32) and
+  ``binarize_video``; the store loaded and 2 ``RADNeRFTask`` steps on it;
+  the networks, the splat, one photometric gradient and the focal search
+  held against the CPU plain path on the card's inputs; ms/frame of
+  parse, FAN and recon, the fit's and the refinement's seconds, the
+  photometric step's idle share (``smoke_out/datagen_photo_step_profile.txt``)
+  and the ``gf::parse/fan/track/photo/recon`` spans.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
@@ -87,7 +103,7 @@ and the idle share of a frame and of a step of each path
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call; a reference or block grid
 site is named by grid, level and backend), and one ``{"kernels": [...]}``
-JSON line listing every site of the eight paths.
+JSON line listing every site of the ten paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -436,7 +452,8 @@ def capture_calls(run) -> list:
     ``("level", id(grid meta), level, backend)`` for the reference and
     block grids', ``("named", name)`` for the renderer's scatters (and
     their backward gathers), ``("clip", name)`` for stage A's clip gathers
-    (and their backward scatter-adds)."""
+    (and their backward scatter-adds), ``("datagen", name)`` for the
+    datagen renderer's normals and splat (and their backward gathers)."""
     import torch
 
     calls = []
@@ -451,8 +468,8 @@ def capture_calls(run) -> list:
                 owner = (id(caller["fmeta"]), caller["gi"])
             elif isinstance(site, str):  # the renderer's named scatters
                 owner = ("named", site)
-            elif site[0] == "clip":  # stage A's clip gathers (and their adjoint)
-                owner = ("clip", site[1])
+            elif site[0] in ("clip", "datagen"):  # stage A's clip gathers (and their
+                owner = site  # adjoint), the datagen renderer's scatters (and theirs)
             else:  # a reference or block grid level
                 owner = ("level", id(site[0]), site[1], site[2])
             calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
@@ -622,7 +639,11 @@ def name_sites(calls, grids: dict, path: str) -> dict:
     label."""
     sites = {}
     for kind, args, owner in calls:
-        if owner[0] == "clip":  # a clip gather over a batch's rows, or its adjoint
+        if owner[0] == "datagen":  # the face renderer's scatters, or their adjoint
+            scatter = kind == "scatter_add_rows"
+            site = f"{path}.{owner[1]}" + ("" if scatter else ".backward_gather")
+            kernel = "scatter_add_rows" if scatter else "gather_rows"
+        elif owner[0] == "clip":  # a clip gather over a batch's rows, or its adjoint
             gather = kind == "gather_rows"
             site = f"{path}.{owner[1]}.{'forward_gather' if gather else 'backward_scatter'}"
             kernel = "gather_rows" if gather else "scatter_add_rows"
@@ -947,7 +968,8 @@ def as_float64(x):
     return np.asarray(x.cpu() if hasattr(x, "cpu") else x, np.float64)
 
 
-def held(name: str, got, ref, bound: float, relative: bool = True) -> float:
+def held(name: str, got, ref, bound: float, relative: bool = True,
+         path: str = "audio_serve") -> float:
     """Max abs difference of card ``got`` against CPU ``ref``, held to
     ``bound`` (times ``max |ref|`` when ``relative``) → the difference."""
     import numpy as np
@@ -957,7 +979,7 @@ def held(name: str, got, ref, bound: float, relative: bool = True) -> float:
         raise AssertionError(f"{name}: card {got.shape} vs CPU {ref.shape}, or not finite")
     err = float(np.abs(got - ref).max())
     limit = bound * float(np.abs(ref).max()) if relative else bound
-    print(f"audio_serve: {name} card vs CPU max abs {err:.3e} (bound {limit:.3e})")
+    print(f"{path}: {name} card vs CPU max abs {err:.3e} (bound {limit:.3e})")
     if not err <= limit:
         raise AssertionError(f"{name}: card vs CPU {err} > {limit}")
     return err
@@ -2325,6 +2347,520 @@ def import_train_phase(cfg, out_dir: str, path: str = "import_train") -> tuple:
     return record, launches, sites
 
 
+# ------------------------------------------------------------------ datagen --
+DATAGEN_FRAMES = 100  # 4 s at 25 fps
+DATAGEN_HW = 512
+DATAGEN_SECONDS = 4.0
+#: BFM09 ``BFM_model_front.mat``: vertices, triangles; ReconNet's id, exp
+#: and tex head widths
+BFM_VERTICES, BFM_TRIS = 35709, 70789
+BFM_DIMS = (80, 64, 80)
+DATAGEN_FOCAL = 1200.0  # the planted focal, one of fit_sequence's candidates
+DATAGEN_CHECK_FRAMES = 2
+DATAGEN_TRAIN_STEPS = 2
+#: refine_photometric's defaults: photo_batch, global and per-frame steps
+DATAGEN_PHOTO_BATCH, PHOTO_GLOBAL_STEPS, PHOTO_FRAME_STEPS = 50, 150, 80
+#: a photometric gradient, card vs CPU at the same parameters: max abs
+#: difference over max |CPU| by key (the geometry's matrix products round
+#: differently on the two devices, which moves splat weights by a few ulp)
+DATAGEN_GRAD_BOUND = 1e-3
+
+
+def bfm_sized_basis(seed: int = 0) -> dict:
+    """A seeded vertex-level 3DMM at BFM09's front widths (numpy): a
+    sphere-cap shell of radius 0.8 on a 190-column grid cut to 35,709
+    vertices, its grid triangles (70,664) topped up to 70,789 with the other
+    diagonal of the first quads, smooth random bases (each column a
+    low-frequency field over the shell, 0.01 per unit), a patterned albedo
+    and 68 landmark vertices."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    cols = 190
+    rows = -(-BFM_VERTICES // cols)
+    r, c = np.divmod(np.arange(BFM_VERTICES), cols)
+    th = -0.6 + 1.2 * r / (rows - 1)
+    ph = -0.7 + 1.4 * c / (cols - 1)
+    x = 0.8 * np.sin(th)
+    y = 0.8 * np.sin(ph) * 1.15
+    z = -0.8 * np.cos(th) * np.cos(ph)
+    tris, extra = [], []
+    for i in range(rows - 1):
+        for j in range(cols - 1):
+            a, b = i * cols + j, i * cols + j + 1
+            cc, d = a + cols, b + cols
+            if d < BFM_VERTICES:
+                tris += [(a, b, cc), (b, d, cc)]
+                extra += [(a, b, d), (a, d, cc)]
+    tris = np.asarray(tris + extra[: BFM_TRIS - len(tris)], np.int64)
+    assert tris.shape == (BFM_TRIS, 3), tris.shape
+
+    def fields(k):  # [V*3, k] smooth columns
+        f = rng.uniform(1.0, 4.0, (2, 3, k))
+        p = rng.uniform(0, 2 * np.pi, (3, k))
+        out = np.sin(x[:, None, None] * f[0] + y[:, None, None] * f[1] + p)  # [V, 3, k]
+        return (0.01 * out).reshape(-1, k).astype(np.float32)
+
+    albedo = np.stack([0.55 + 0.35 * np.sin(4.0 * x) * np.cos(3.0 * y),
+                       0.45 + 0.30 * np.cos(5.0 * x + 1.0),
+                       0.40 + 0.30 * np.sin(3.0 * y + 0.5)], -1)
+    return {"mean": np.stack([x, y, z], -1).reshape(-1).astype(np.float32),
+            "id_base": fields(BFM_DIMS[0]), "exp_base": fields(BFM_DIMS[1]),
+            "tex_mean": albedo.reshape(-1).astype(np.float32), "tex_base": fields(BFM_DIMS[2]),
+            "tris": tris,
+            "lm_index": np.linspace(cols * 10, BFM_VERTICES - cols * 10, 68).astype(np.int64)}
+
+
+def datagen_bases(b: dict, device) -> tuple:
+    """(``FullFaceBasis``, its landmark ``FaceBasis``) on ``device``."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.datagen.face_renderer import FullFaceBasis
+    from geneface_tpu_torch.datagen.face_tracker import FaceBasis
+
+    fb = FullFaceBasis(**{k: torch.as_tensor(v, device=device) for k, v in b.items()})
+    sel = np.stack([3 * b["lm_index"] + k for k in range(3)], -1).reshape(-1)
+    lb = FaceBasis(*(torch.as_tensor(b[k][sel], device=device)
+                     for k in ("mean", "id_base", "exp_base")))
+    return fb, lb
+
+
+def planted_video(fb, lb, seed: int = 1) -> tuple:
+    """100 frames of 512²: the basis rendered on the card at known smooth
+    parameters and ``DATAGEN_FOCAL`` (the soft splat at scale 4, upsampled
+    nearest, as the JAX package's photometric test plants its frames) over a
+    seeded background → (uint8 frames, the planted landmarks [T, 68, 2])."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.datagen import face_renderer as R
+    from geneface_tpu_torch.datagen.face_tracker import _cam_geometry, project_landmarks
+
+    rng = np.random.RandomState(seed)
+    T, HW = DATAGEN_FRAMES, DATAGEN_HW
+    t = np.arange(T)[:, None]
+    freq = rng.uniform(0.05, 0.3, (1, BFM_DIMS[1]))
+    planted = {
+        "id": rng.randn(BFM_DIMS[0]) * 0.5,
+        "exp": np.sin(t * freq + rng.uniform(0, 6.3, (1, BFM_DIMS[1]))) * 0.5,
+        "euler": np.concatenate([0.12 * np.sin(t * 0.11), 0.10 * np.cos(t * 0.07),
+                                 0.05 * np.sin(t * 0.05)], -1),
+        "trans": np.concatenate([0.06 * np.sin(t * 0.06), 0.05 * np.cos(t * 0.09),
+                                 7.0 + 0.15 * np.sin(t * 0.04)], -1),
+        "tex": rng.randn(BFM_DIMS[2]) * 0.5,
+        "light": np.tile(np.eye(1, 27, 2) * 0.3 + rng.randn(1, 27) * 0.05, (T, 1)),
+    }
+    planted = {k: np.asarray(v, np.float32) for k, v in planted.items()}
+    dev = fb.mean.device
+    p = {k: torch.as_tensor(v, device=dev) for k, v in planted.items()}
+    cxy = torch.tensor([HW / 2.0, HW / 2.0], device=dev)
+    frames = []
+    with torch.no_grad():
+        albedo = (fb.tex_mean + p["tex"] @ fb.tex_base.T).reshape(1, -1, 3)
+        for lo in range(0, T, DATAGEN_PHOTO_BATCH):
+            sl = slice(lo, lo + DATAGEN_PHOTO_BATCH)
+            cam = _cam_geometry(fb, p["id"], p["exp"][sl], p["euler"][sl], p["trans"][sl])
+            colors = albedo * R.sh9_irradiance(R.vertex_normals(cam, fb.tris), p["light"][sl])
+            rgb, w = R.render_vertices_soft(cam, colors, DATAGEN_FOCAL, cxy, HW, HW, scale=4)
+            frames.append(torch.cat([rgb.clamp(0, 1), (w > 0.05)[..., None].float()], -1))
+        face = torch.cat(frames).repeat_interleave(4, 1).repeat_interleave(4, 2)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        bg = torch.rand(1, 3, HW // 32, HW // 32, device=dev, generator=g)
+        bg = torch.nn.functional.interpolate(bg, size=(HW, HW), mode="bilinear")
+        bg = bg.permute(0, 2, 3, 1) * 0.6 + 0.2
+        rgb = torch.where(face[..., 3:] > 0, face[..., :3], bg)
+        video = (rgb * 255).round().to(torch.uint8).cpu().numpy()
+        lms = project_landmarks(lb, p["id"], p["exp"], p["euler"], p["trans"],
+                                DATAGEN_FOCAL, cxy).cpu().numpy()
+    return video, lms
+
+
+def datagen_phase(cfg, out_dir: str, path: str = "datagen") -> tuple:
+    """A person's dataset made on the card: a seeded BFM-sized basis, a
+    planted 100-frame 512² video and a 4 s wav, through ``process_frames``
+    (mel, f0, HuBERT-large; BiSeNet as ``parse_fn``; the planted landmarks
+    as ``lm_fn``; ``fit_sequence`` and ``refine_photometric`` at their
+    defaults), FAN on every frame, ``extract_3dmm_coeffs`` and
+    ``binarize_video``; then the store loaded and 2 ``RADNeRFTask`` steps on
+    it. Every stage timed; the networks, the renderer, one photometric
+    gradient and the focal search held against the CPU plain path →
+    (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch import resolve_device
+    from geneface_tpu_torch.datagen import extract_3dmm_coeffs
+    from geneface_tpu_torch.datagen import face_tracker as FT
+    from geneface_tpu_torch.datagen.binarizer import binarize_video
+    from geneface_tpu_torch.datagen.face_landmarker import FAN, FANLandmarker
+    from geneface_tpu_torch.datagen.face_parser import BiSeNet, parse_frame
+    from geneface_tpu_torch.datagen.face_recon import ReconNet, Reconstructor
+    from geneface_tpu_torch.datagen.process import process_frames
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.models.layers import init_weights_
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.training.optim import param_groups, radnerf_label_fn
+
+    dev = resolve_device()
+    root = os.path.dirname(cfg["work_dir"])
+    work = os.path.join(root, "datagen")
+    os.makedirs(work, exist_ok=True)
+    t0 = time.perf_counter()
+    b = bfm_sized_basis()
+    fb, lb = datagen_bases(b, dev)
+    video, planted_lms = planted_video(fb, lb)
+    audio = os.path.join(root, "audio")
+    hubert = os.path.join(audio, "hubert.pkl")
+    if not os.path.exists(hubert):
+        hubert = write_audio_models(audio)["hubert"]
+    os.environ["GF_HUBERT_CKPT"] = hubert
+    wav = os.path.join(work, "speech.wav")
+    write_voiced_wav(wav, DATAGEN_SECONDS, seed=2)
+    gen = torch.Generator().manual_seed(5)
+    parser = init_weights_(BiSeNet(), gen).to(dev).eval()
+    fan = FANLandmarker(init_weights_(FAN(), gen), device=dev)
+    recon = Reconstructor(init_weights_(ReconNet(), gen), device=dev)
+    setup_s = time.perf_counter() - t0
+    print(f"{path}: basis {BFM_VERTICES} vertices, {BFM_TRIS} triangles, id/exp/tex "
+          f"{BFM_DIMS}; planted video {video.shape} at focal {DATAGEN_FOCAL}; set-up "
+          f"{setup_s:.1f} s")
+
+    # the main path, counted: process_frames → FAN → 3DMM coefficients → store
+    timings = {"parse_s": 0.0, "track_s": 0.0, "photo_s": 0.0}  # and each's last output
+    real_fit, real_refine = FT.fit_sequence, FT.refine_photometric
+
+    def timed(fn, key):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timings[key] += time.perf_counter() - ts
+            timings[key + "_out"] = out
+            return out
+        return call
+
+    lm_iter = iter(planted_lms)
+    parse_fn = timed(lambda f: parse_frame(parser, f), "parse_s")
+    FT.fit_sequence, FT.refine_photometric = (timed(real_fit, "track_s"),
+                                              timed(real_refine, "photo_s"))
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    try:
+        t1 = time.perf_counter()
+        man = process_frames(video, os.path.join(work, "proc"), parse_fn=parse_fn,
+                             lm_fn=lambda f: next(lm_iter), basis=lb, full_basis=fb,
+                             wav_path=wav)
+        process_s = time.perf_counter() - t1
+    finally:
+        FT.fit_sequence, FT.refine_photometric = real_fit, real_refine
+    ts = time.perf_counter()
+    fan_lms = np.stack([fan(video[t], man["masks"][t]) for t in range(DATAGEN_FRAMES)])
+    fan_s = time.perf_counter() - ts
+    ts = time.perf_counter()
+    coeffs = extract_3dmm_coeffs(video, man["lms"], recon, batch_size=32)
+    recon_s = time.perf_counter() - ts
+    store = os.path.join(work, "store")
+    binarize_video(man, store, basis=lb)
+    chunk = min(DATAGEN_PHOTO_BATCH, DATAGEN_FRAMES)
+    n_photo_steps = PHOTO_GLOBAL_STEPS + PHOTO_FRAME_STEPS * -(-DATAGEN_FRAMES // chunk)
+    want = {"scatter_add_rows": 2 * n_photo_steps, "gather_rows": 2 * n_photo_steps}
+    launches = dict(LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, expected {want} (normals and splat, "
+                             "forward and backward, per photometric step)")
+    track = man["track"]
+    audio_shapes = {k: None if v is None else list(v.shape) for k, v in man["audio"].items()}
+    if not np.isfinite(track["photo_loss"]):
+        raise AssertionError(f"{path}: photo loss {track['photo_loss']}")
+    if (coeffs.shape != (DATAGEN_FRAMES, 257) or not np.isfinite(coeffs).all()
+            or not np.isfinite(fan_lms).all() or None in audio_shapes.values()):
+        raise AssertionError(f"{path}: coeffs {coeffs.shape}, FAN finite "
+                             f"{np.isfinite(fan_lms).all()}, audio {audio_shapes}")
+    T = DATAGEN_FRAMES
+    stage = {"parse_ms_per_frame": timings["parse_s"] / T * 1e3,
+             "fan_ms_per_frame": fan_s / T * 1e3, "recon_ms_per_frame": recon_s / T * 1e3,
+             "track_s": timings["track_s"], "photo_s": timings["photo_s"],
+             "photo_ms_per_step": timings["photo_s"] / n_photo_steps * 1e3,
+             "process_frames_s": process_s}
+    print(f"{path}: process_frames {process_s:.3f} s; ms/frame parse "
+          f"{stage['parse_ms_per_frame']:.3f}, FAN {stage['fan_ms_per_frame']:.3f}, recon "
+          f"{stage['recon_ms_per_frame']:.3f} (alignment on the host included); landmark fit "
+          f"{timings['track_s']:.3f} s, refinement {timings['photo_s']:.3f} s "
+          f"({n_photo_steps} steps, {stage['photo_ms_per_step']:.3f} ms/step); focal "
+          f"{track['focal']} (planted {DATAGEN_FOCAL}), landmark loss {track['loss']:.4f}, "
+          f"photo loss {track['photo_loss']:.6f}; audio " + json.dumps(audio_shapes))
+
+    # the store trains: RADNeRFDataset loads it, 2 RADNeRFTask steps from the
+    # head checkpoint (its planted occupancy ball). The store's c2w is the
+    # tracker's camera (+z forward) where the dataset reads the NeRF's (-z
+    # forward), as the JAX package writes it (ROADMAP, Queue 3): its rays
+    # look away from the head. The cell mirrors the cameras through the head
+    # with the dataset's camera_scale and camera_offset (at the synthetic
+    # scene's distance, 0.6 before the ngp scale of 4), so that the rays
+    # cross the occupancy and every group gets a gradient
+    from geneface_tpu_torch.utils.camera import nerf_matrix_to_ngp
+
+    c2w = np.stack([s["c2w"] for s in np.load(os.path.join(store, "trainval_dataset.npy"),
+                                              allow_pickle=True).item()["train_samples"]])
+    scale = 0.6 * 4.0 / float(np.linalg.norm(c2w[:, :3, 3], axis=-1).mean())
+    origin = np.mean([nerf_matrix_to_ngp(m, scale=scale)[:3, 3] for m in c2w], 0)
+    tcfg = train_cfg(dict(cfg, data_dir=store, work_dir=os.path.join(work, "train"),
+                          camera_scale=scale, camera_offset=(-2.0 * origin).tolist()))
+    os.makedirs(tcfg["work_dir"], exist_ok=True)
+    shutil.copy(os.path.join(cfg["work_dir"], "model_ckpt_steps_0.ckpt"), tcfg["work_dir"])
+    ts = time.perf_counter()
+    task = RADNeRFTask(tcfg)
+    task.build()
+    batches = task.train_batches()
+    losses = [float(task.train_step(next(batches))["total_loss"])
+              for _ in range(DATAGEN_TRAIN_STEPS)]
+    nonzero = {g["name"]: sum(int(p.grad is not None and bool((p.grad != 0).any()))
+                              for p in g["params"])
+               for g in param_groups(task.model, radnerf_label_fn,
+                                     {"net": 1, "grid": 1, "att": 1})}
+    if not all(np.isfinite(losses)) or not all(nonzero.values()):
+        raise AssertionError(f"{path}: store training losses {losses}, non-zero gradients "
+                             f"by group {nonzero}")
+    train_s = time.perf_counter() - ts
+    train_launches = {k: LAUNCHES[k] - launches[k] for k in LAUNCHES}
+    launches = dict(LAUNCHES)
+    print(f"{path}: the store ({len(task.train_ds.samples)} train frames) trains: losses {[round(x, 6) for x in losses]}, parameters with a "
+          f"non-zero gradient by group {nonzero}, launches {train_launches}")
+
+    ts = time.perf_counter()
+    checks = datagen_checks(path, parser, fan, recon, video, man, fb, lb,
+                            timings["track_s_out"])
+    checks_s = time.perf_counter() - ts
+    ts = time.perf_counter()
+    prof = datagen_profiles(path, out_dir, parser, fan, recon, video, man, fb, lb)
+    print(f"{path}: store training {train_s:.1f} s, card-vs-CPU checks {checks_s:.1f} s, "
+          f"profiles {time.perf_counter() - ts:.1f} s")
+
+    # the kernel sites of one photometric step (50 frames)
+    sites = name_sites(capture_calls(lambda: photo_step(fb, man, video, range(
+        DATAGEN_PHOTO_BATCH))), {}, path)
+    record = {"stages": stage, "launches_datagen": want, "launches_store_train": train_launches,
+              "focal": track["focal"], "landmark_loss": track["loss"],
+              "photo_loss": track["photo_loss"], "store_train_losses": losses,
+              "nonzero_grad_params": nonzero, "card_vs_cpu": checks, "profile": prof}
+    return record, launches, sites
+
+
+def photo_inputs(fb, man, video, ids, device) -> tuple:
+    """(params, frames_ds, lms, focal, cxy) of ``_photo_loss`` at the
+    refined track for the frames ``ids``, on ``device``."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.datagen.face_renderer import downsample_frames
+
+    ids = np.asarray(list(ids))
+    tr = man["track"]
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    params = {"id": f32(tr["id"]), "exp": f32(tr["exp"][ids]), "euler": f32(tr["euler"][ids]),
+              "trans": f32(tr["trans"][ids]), "tex": f32(tr["tex"]), "light": f32(tr["light"][ids])}
+    frames_ds = f32(downsample_frames(video[ids].astype(np.float32) / 255.0, 4))
+    hw = DATAGEN_HW
+    return (params, frames_ds, f32(man["lms"][ids]), torch.tensor(float(tr["focal"]), device=device),
+            torch.tensor([hw / 2.0, hw / 2.0], device=device))
+
+
+def photo_step(fb, man, video, ids, params=None) -> tuple:
+    """One ``_photo_loss`` forward and backward on ``fb``'s device →
+    (total, terms, gradients by key)."""
+    import torch
+
+    from geneface_tpu_torch.datagen.face_tracker import _photo_loss
+
+    p, frames_ds, lms, focal, cxy = photo_inputs(fb, man, video, ids, fb.mean.device)
+    p = {k: v.requires_grad_(True) for k, v in (params or p).items()}
+    total, aux = _photo_loss(p, fb, frames_ds, lms, focal, cxy, DATAGEN_HW, DATAGEN_HW, 4,
+                             1.0, 1e-3, 1.0, 1e-3, 1e-3, 0.05)
+    grads = torch.autograd.grad(total, list(p.values()))
+    return total.detach(), {k: v.detach() for k, v in aux.items()}, dict(zip(p, grads))
+
+
+def datagen_checks(path, parser, fan, recon, video, man, fb, lb, lm_track) -> dict:
+    """The card against the port's plain CPU path on the card's inputs."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.datagen import face_renderer as R
+    from geneface_tpu_torch.datagen import face_tracker as FT
+    from geneface_tpu_torch.datagen.face_parser import parse_logits
+    from geneface_tpu_torch.ops.scatter import scatter_add_rows_plain
+
+    cpu = torch.device("cpu")
+    out = {}
+    n = DATAGEN_CHECK_FRAMES
+    # the networks on 2 frames, within 1e-5 of max |ref| (TF32 off)
+    card_logits = parse_logits(parser, video[:n])
+    cpu_logits = parse_logits(copy.deepcopy(parser).to(cpu), video[:n])
+    out["bisenet"] = held("BiSeNet logits", card_logits, cpu_logits, 1e-5, path=path)
+    flips = int((card_logits.argmax(-1).cpu() != cpu_logits.argmax(-1)).sum())
+    crops = np.stack([fan.crop(video[t], man["masks"][t])[0] for t in range(n)])
+    cpu_fan = copy.deepcopy(fan)
+    cpu_fan.model, cpu_fan.device = cpu_fan.model.to(cpu), cpu
+    out["fan"] = held("FAN heatmaps", fan.heatmaps(crops), cpu_fan.heatmaps(crops), 1e-5,
+                      path=path)
+    aligned = np.stack([recon.preprocess(video[t], man["lms"][t]) for t in range(n)])
+    cpu_recon = copy.deepcopy(recon)
+    cpu_recon.net, cpu_recon.device = cpu_recon.net.to(cpu), cpu
+    out["recon"] = held("ReconNet coefficients", recon.coeffs(aligned),
+                        cpu_recon.coeffs(aligned), 1e-5, path=path)
+    print(f"{path}: BiSeNet argmax of {flips} of {n * DATAGEN_HW ** 2} pixels in another "
+          "class on the card than on the CPU (near ties)")
+    out["mask_pixels_differing"] = flips
+
+    # the renderer at the card's geometry and colours (50 frames): weights
+    # and colours held to K1's rounding bound on the CPU's splat updates
+    ids = range(DATAGEN_PHOTO_BATCH)
+    p, _, _, focal, cxy = photo_inputs(fb, man, video, ids, fb.mean.device)
+    with torch.no_grad():
+        cam = FT._cam_geometry(fb, p["id"], p["exp"], p["euler"], p["trans"])
+        albedo = (fb.tex_mean + p["tex"] @ fb.tex_base.T).reshape(1, -1, 3)
+        colors = albedo * R.sh9_irradiance(R.vertex_normals(cam, fb.tris), p["light"])
+        rgb, w = R.render_vertices_soft(cam, colors, focal, cxy, DATAGEN_HW, DATAGEN_HW, scale=4)
+    cpu_args = (cam.cpu(), colors.cpu(), focal.cpu(), cxy.cpu(), DATAGEN_HW, DATAGEN_HW)
+    calls = capture_calls(lambda: R.render_vertices_soft(*cpu_args, scale=4))
+    rgb_c, w_c = R.render_vertices_soft(*cpu_args, scale=4)
+    _, (rows, upd, n_rows), _ = next(c for c in calls if c[2] == ("datagen", "splat"))
+    kept = (rows >= 0) & (rows < n_rows)
+    cnt = torch.bincount(rows[kept].long(), minlength=n_rows).float()[:, None]
+    mag = scatter_add_rows_plain(rows, upd.abs(), n_rows)
+    # two summation orders (2·n·2^-24·Σ|u|) and the updates' own last bit
+    # (exp on two math libraries: 2^-22·Σ|u|)
+    bound = (2.0 * cnt * 2.0**-24 + 2.0**-22) * mag  # [B·h·w, 4]
+    bw = bound[:, 3].reshape(w_c.shape)
+    dw = (w.cpu() - w_c).abs()
+    if bool((dw > bw).any()):
+        raise AssertionError(f"{path}: splat weights card vs CPU beyond the rounding bound: "
+                             f"{int((dw > bw).sum())} pixels, max {float(dw.max()):.3e}")
+    # colour = sums / weight: its bound is (b_sum + |rgb|·b_w) / w, plus its own rounding
+    covered = w_c > 0.05
+    brgb = ((bound[:, :3].reshape(rgb_c.shape) + rgb_c.abs() * bw[..., None])
+            / w_c.clamp_min(1e-8)[..., None] + 2.0**-22 * rgb_c.abs())
+    drgb = (rgb.cpu() - rgb_c).abs()
+    bad = int(((drgb > brgb) & covered[..., None]).sum())
+    if bad:
+        raise AssertionError(f"{path}: splat colours card vs CPU beyond the bound at {bad} values")
+    out["splat_weight_max_abs"] = float(dw.max())
+    out["splat_rgb_max_abs_covered"] = float(drgb[covered].max())
+    print(f"{path}: splat of {DATAGEN_PHOTO_BATCH} frames card vs CPU (the card's geometry): "
+          f"weight max abs {out['splat_weight_max_abs']:.3e}, colour max abs "
+          f"{out['splat_rgb_max_abs_covered']:.3e} on {int(covered.sum())} covered pixels, "
+          "every value inside the rounding bound")
+
+    # one photometric gradient at the card's parameters (50 frames)
+    total, _, g_card = photo_step(fb, man, video, ids)
+    fb_cpu = fb.to(cpu)
+    total_c, _, g_cpu = photo_step(fb_cpu, man, video, ids)
+    rel = {k: float((g_card[k].cpu() - g_cpu[k]).abs().max() / g_cpu[k].abs().max())
+           for k in g_cpu}
+    out["photo_grad_rel"] = rel
+    out["photo_loss_rel"] = float(abs(total.cpu() - total_c) / abs(total_c))
+    print(f"{path}: photometric loss card vs CPU rel {out['photo_loss_rel']:.3e}; gradient max "
+          "abs / max |CPU| by key " + json.dumps({k: f"{v:.3e}" for k, v in rel.items()})
+          + f" (bound {DATAGEN_GRAD_BOUND})")
+    if not out["photo_loss_rel"] <= 1e-5 or not max(rel.values()) <= DATAGEN_GRAD_BOUND:
+        raise AssertionError(f"{path}: photometric step card vs CPU {out['photo_loss_rel']}, "
+                             f"{rel}")
+
+    # the focal search on the CPU from the same landmarks
+    ts = time.perf_counter()
+    cpu_track = FT.fit_sequence(man["lms"], lb.to(cpu), DATAGEN_HW, DATAGEN_HW, device="cpu")
+    out["cpu_focal"] = cpu_track["focal"]
+    out["cpu_fit_s"] = time.perf_counter() - ts
+    if cpu_track["focal"] != man["track"]["focal"]:
+        raise AssertionError(f"{path}: focal card {man['track']['focal']} vs CPU "
+                             f"{cpu_track['focal']}")
+    print(f"{path}: fit_sequence on the CPU picks focal {cpu_track['focal']} as the card "
+          f"({out['cpu_fit_s']:.1f} s; landmark loss CPU {cpu_track['loss']:.5f}, card "
+          f"{man['track']['loss']:.5f})")
+
+    # the refinement lowers the colour loss of the landmark-only track
+    def col_loss(track) -> float:
+        m = dict(man, track=track)
+        terms = [photo_step(fb, m, video, range(lo, lo + DATAGEN_PHOTO_BATCH))[1]["col"]
+                 for lo in range(0, DATAGEN_FRAMES, DATAGEN_PHOTO_BATCH)]
+        return float(sum(terms)) / len(terms)
+
+    tex_dim, T = fb.tex_base.shape[1], DATAGEN_FRAMES
+    before = col_loss(dict(lm_track, tex=np.zeros(tex_dim, np.float32),
+                           light=np.zeros((T, 27), np.float32)))
+    after = col_loss(man["track"])
+    out["col_loss_landmark_only"], out["col_loss_refined"] = before, after
+    print(f"{path}: colour loss over the {T} planted frames: landmark-only track {before:.6f}, "
+          f"refined {after:.6f}")
+    if not (np.isfinite(after) and after < before):
+        raise AssertionError(f"{path}: refined colour loss {after} not below {before}")
+    return out
+
+
+def datagen_profiles(path, out_dir, parser, fan, recon, video, man, fb, lb) -> dict:
+    """Device busy and idle share of one photometric step (50 frames,
+    forward, backward and Adam; table to ``<path>_photo_step_profile.txt``)
+    and the ``gf::`` span of each stage in a window of its own."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity
+
+    from geneface_tpu_torch.datagen import face_tracker as FT
+    from geneface_tpu_torch.datagen.face_parser import parse_logits
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    ids = range(DATAGEN_PHOTO_BATCH)
+    p, frames_ds, lms, focal, cxy = photo_inputs(fb, man, video, ids, fb.mean.device)
+
+    def step(n=1):
+        return FT._photo_fit(fb, frames_ds, lms, focal, cxy, p, steps=n, lr=0.005,
+                             H=DATAGEN_HW, W=DATAGEN_HW, scale=4, frozen=("id", "tex"))
+
+    step(2)
+    torch.cuda.synchronize()
+    ts = time.perf_counter()
+    step(10)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - ts) / 10 * 1e3
+    kernels, spans, busy = kernel_table(profiled(step, acts))
+    with open(os.path.join(out_dir, f"{path}_photo_step_profile.txt"), "w") as f:
+        f.write(f"photometric step (50 frames, frozen id/tex) wall {wall:.3f} ms, device busy "
+                f"{fmt_ms(busy, ' ms')}\n")
+        for name, ms in sorted(spans.items(), key=lambda s: -s[1]):
+            f.write(f"stage {name:24s} {ms:9.3f} ms\n")
+        for name, ms, n in kernels:
+            f.write(f"{ms:9.3f} ms {n:5d}x {name}\n")
+    idle = None if busy is None else max(0.0, 1.0 - busy / wall)
+    crop = fan.crop(video[0], man["masks"][0])[0][None]
+    aligned = np.stack([recon.preprocess(video[t], man["lms"][t])
+                        for t in range(min(32, DATAGEN_FRAMES))])
+    windows = {
+        "gf::parse": lambda: parse_logits(parser, video[:1]),
+        "gf::fan": lambda: fan.heatmaps(crop),
+        "gf::recon": lambda: recon.coeffs(aligned),
+        # a tenth of the fit's steps: the whole fit is ~100,000 launches
+        "gf::track": lambda: FT.fit_sequence(man["lms"], lb, DATAGEN_HW, DATAGEN_HW,
+                                             coarse_steps=30, refine_steps=70),
+        "gf::photo": step,
+    }
+    span_ms = {}
+    for name, run in windows.items():
+        span_ms[name] = kernel_table(profiled(run, acts))[1].get(name)
+    print(f"{path}: photometric step wall {wall:.3f} ms, device busy {fmt_ms(busy, ' ms')} (idle "
+          f"share {fmt_ms(idle)}); spans ms (one frame of parse and FAN, 32 crops of recon, "
+          "a landmark fit of 30 + 70 steps, one photometric step) "
+          + json.dumps({k: None if v is None else round(v, 3) for k, v in span_ms.items()}))
+    return {"photo_step_wall_ms": wall, "device_busy_ms": busy, "idle_share": idle,
+            "spans_ms": span_ms, "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
+
+
 def main() -> int:
     import torch
 
@@ -2363,7 +2899,8 @@ def main() -> int:
                   ("audio_train", audio_train_phase, cfg),
                   ("train_lip", train_lip_phase, cfg),
                   ("import_serve", import_serve_phase, import_cfg(cfg)),
-                  ("import_train", import_train_phase, import_cfg(cfg))]
+                  ("import_train", import_train_phase, import_cfg(cfg)),
+                  ("datagen", datagen_phase, cfg)]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

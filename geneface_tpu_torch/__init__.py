@@ -1,6 +1,7 @@
 """PyTorch + CUDA port of geneface_tpu: the RAD-NeRF head and torso
-(serving and training) and the speech-to-landmarks serving path (HuBERT,
-the Audio2Motion VAE, the post-net, the LLE projection).
+(serving and training), the speech-to-landmarks path (HuBERT, the
+Audio2Motion VAE, the post-net, the LLE projection; serving and training)
+and datagen (a person's video to the dataset the head trains on).
 
 The JAX package ``geneface_tpu`` stays the reference; this package mirrors
 its layout (``ops/``, ``models/``, ``inference/``, ``data/``, ``datagen/``,

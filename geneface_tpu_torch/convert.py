@@ -30,7 +30,11 @@ their submodules as flax does, so :func:`load_flax_variables` and
 - ``Linear``: kernel ``[in, out]`` ↔ weight ``[out, in]``;
 - ``LayerNorm``/``GroupNorm``: ``scale`` ↔ ``weight``; ``BatchNorm1d`` also
   ``batch_stats`` ``mean``/``var`` ↔ ``running_mean``/``running_var``;
-- ``Embedding``: ``embedding`` ↔ ``weight``.
+- ``Embedding``: ``embedding`` ↔ ``weight``;
+- ``Conv2d`` (the datagen networks: BiSeNet, FAN, ReconNet): kernel
+  ``HWIO`` ↔ weight ``OIHW``; ``BatchNorm2d`` as ``BatchNorm1d``.
+  :func:`load_flax_npz` reads the flattened ``.npz`` (``params/…``,
+  ``batch_stats/…`` keys) that the JAX package's weight converters write.
 
 SyncNet (``ConvBlock_0..25``, each ``Conv_0`` and ``LayerNorm_0`` or
 ``BatchNorm_0``) and the post-net's ``MLPDiscriminator`` (``Dense_0..3``
@@ -63,6 +67,7 @@ __all__ = [
     "param_values_from_flax",
     "lpips_state_dict",
     "lpips_flax_params",
+    "load_flax_npz",
 ]
 
 _AUDIO_DENSE = {
@@ -168,8 +173,8 @@ def _subtree(tree: dict, path: list):
 
 def _module_leaves(model: nn.Module):
     """``(flax path, module)`` of every module holding parameters."""
-    kinds = (nn.Conv1d, nn.ConvTranspose1d, nn.Linear, nn.LayerNorm, nn.GroupNorm,
-             nn.BatchNorm1d, nn.Embedding)
+    kinds = (nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d, nn.Linear, nn.LayerNorm, nn.GroupNorm,
+             nn.BatchNorm1d, nn.BatchNorm2d, nn.Embedding)
     for name, m in model.named_modules():
         if isinstance(m, kinds):
             yield name.split("."), m
@@ -194,7 +199,7 @@ def load_flax_variables(model: nn.Module, variables: dict, assign: bool = False)
         if "bias" in p:
             sd[f"{pre}.bias"] = p["bias"]
         used += len(p)
-        if isinstance(m, nn.BatchNorm1d):
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             s = _subtree(stats, path)
             sd[f"{pre}.running_mean"] = torch.as_tensor(np.asarray(s["mean"]))
             sd[f"{pre}.running_var"] = torch.as_tensor(np.asarray(s["var"]))
@@ -214,7 +219,7 @@ def flax_variables(model: nn.Module) -> dict:
     tree = flax_param_tree(model, dict(model.named_parameters()))
     stats: dict = {}
     for path, m in _module_leaves(model):
-        if isinstance(m, nn.BatchNorm1d):
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             node = stats
             for p in path:
                 node = node.setdefault(p, {})
@@ -231,6 +236,8 @@ def _kernel_maps(m: nn.Module) -> tuple:
                 lambda k: k.flip(0).permute(1, 2, 0))
     if isinstance(m, nn.Conv1d):
         return "kernel", lambda w: w.permute(2, 1, 0), lambda k: k.permute(2, 1, 0)
+    if isinstance(m, nn.Conv2d):
+        return "kernel", lambda w: w.permute(2, 3, 1, 0), lambda k: k.permute(3, 2, 0, 1)
     if isinstance(m, nn.Linear):
         return "kernel", lambda w: w.T, lambda k: k.T
     if isinstance(m, nn.Embedding):
@@ -305,3 +312,18 @@ def lpips_flax_params(model: nn.Module) -> dict:
         else:
             out[name] = np.array(v, order="C")
     return {"params": {"alex": alex, **out}}
+
+
+def load_flax_npz(model: nn.Module, path: str) -> nn.Module:
+    """:func:`load_flax_variables` from an ``.npz`` of the flattened flax
+    variables (keys ``params/<module>/…/<leaf>`` and
+    ``batch_stats/<module>/…/<leaf>``)."""
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            *parents, leaf = key.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = data[key]
+    return load_flax_variables(model, tree)

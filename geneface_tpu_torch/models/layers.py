@@ -20,6 +20,7 @@ __all__ = [
     "PadConv1d",
     "ChannelLayerNorm",
     "FrozenBatchNorm1d",
+    "FrozenBatchNorm2d",
     "same_padding",
     "channel_norm",
     "init_weights_",
@@ -69,6 +70,15 @@ class FrozenBatchNorm1d(nn.BatchNorm1d):
                             self.bias, training=False, eps=self.eps)
 
 
+class FrozenBatchNorm2d(nn.BatchNorm2d):
+    """Eval-mode BatchNorm on ``[B, C, H, W]`` whatever the module's mode
+    (the datagen networks' frozen running statistics)."""
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                            self.bias, training=False, eps=self.eps)
+
+
 def channel_norm(norm: str, channels: int) -> nn.Module:
     """The ``norm`` of the VAE's condition encoder and the post-net blocks:
     ``"ln"`` (flax ``LayerNorm()``, epsilon 1e-6) or ``"bn"`` (frozen
@@ -92,7 +102,7 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
         t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1) * bound)
 
     for m in model.modules():
-        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d, nn.Linear)):
             w = m.weight
             fan_in = w.shape[1] * math.prod(w.shape[2:])
             if isinstance(m, nn.ConvTranspose1d):  # weight [Cin, Cout, K]
@@ -103,10 +113,10 @@ def init_weights_(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 uniform_(m.bias, bound)
         elif isinstance(m, nn.Embedding):
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator))
-        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d)):
+        elif isinstance(m, (nn.LayerNorm, nn.GroupNorm, nn.BatchNorm1d, nn.BatchNorm2d)):
             m.weight.copy_(1 + (torch.rand(m.weight.shape, generator=generator) * 2 - 1) * 0.1)
             uniform_(m.bias, 0.1)
-            if isinstance(m, nn.BatchNorm1d):
+            if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
                 uniform_(m.running_mean, 0.1)
                 m.running_var.copy_(0.5 + torch.rand(m.running_var.shape, generator=generator))
     return model

@@ -1,7 +1,7 @@
-"""Audio IO and features for stage A (port of the parts of
-``geneface_tpu/utils/audio.py`` that the speech-to-landmarks path runs):
-16 kHz loading, the autocorrelation f0 (a host op, numpy) and the HuBERT
-hidden states from a converted checkpoint.
+"""Audio IO and features (port of ``geneface_tpu/utils/audio.py``): 16 kHz
+loading, the 80-bin log-mel at hop 160 (scipy's ``stft``), the
+autocorrelation f0 (host ops, numpy) and the HuBERT hidden states from a
+converted checkpoint.
 
 HuBERT reads the converted checkpoint at ``GF_HUBERT_CKPT`` (default
 ``data/ckpt/hubert.pkl``; ``tools/convert_hubert_torch.py`` writes it). The
@@ -24,6 +24,7 @@ __all__ = [
     "HOP",
     "load_wav16k",
     "save_wav16k_from_any",
+    "melspectrogram",
     "extract_f0",
     "hubert_checkpoint",
     "load_hubert",
@@ -33,6 +34,8 @@ __all__ = [
 SR = 16000
 HOP = 160  # 100 audio frames per second
 WIN = 800
+N_FFT = 1024
+N_MELS = 80
 
 
 def load_wav16k(path: str) -> np.ndarray:
@@ -68,6 +71,38 @@ def save_wav16k_from_any(path: str, out_path: str | None = None) -> str:
         check=True,
     )
     return out_path
+
+
+def _mel_filterbank(sr=SR, n_fft=N_FFT, n_mels=N_MELS, fmin=55.0, fmax=7600.0):
+    def hz_to_mel(f):
+        return 2595.0 * np.log10(1.0 + f / 700.0)
+
+    def mel_to_hz(m):
+        return 700.0 * (10.0 ** (m / 2595.0) - 1.0)
+
+    mels = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
+    freqs = mel_to_hz(mels)
+    bins = np.floor((n_fft + 1) * freqs / sr).astype(int)
+    fb = np.zeros((n_mels, n_fft // 2 + 1), np.float32)
+    for i in range(n_mels):
+        lo, mid, hi = bins[i], bins[i + 1], bins[i + 2]
+        if mid > lo:
+            fb[i, lo:mid] = (np.arange(lo, mid) - lo) / (mid - lo)
+        if hi > mid:
+            fb[i, mid:hi] = (hi - np.arange(mid, hi)) / (hi - mid)
+    return fb
+
+
+def melspectrogram(wav: np.ndarray, n_mels: int = N_MELS) -> np.ndarray:
+    """``[S]`` waveform → log-mel ``[T, n_mels]`` at hop 160."""
+    from scipy.signal import stft
+
+    _, _, Z = stft(
+        wav, fs=SR, nperseg=WIN, noverlap=WIN - HOP, nfft=N_FFT,
+        boundary="zeros", padded=True,
+    )
+    mel = _mel_filterbank(n_mels=n_mels) @ np.abs(Z)
+    return np.log10(np.maximum(mel, 1e-5)).T.astype(np.float32)
 
 
 def extract_f0(wav: np.ndarray, fmin: float = 80.0, fmax: float = 600.0) -> np.ndarray:

@@ -1,7 +1,8 @@
 """Camera math (copies of ``geneface_tpu/utils/camera.py``): ngp pose
-conversion, 6-D pose vectors, background coordinates and pinhole rays on the
-host (numpy), and the ray / background-coordinate rebuild of a training
-batch from its pixel indices on the device (torch)."""
+conversion, 6-D pose vectors and their inverse (euler + translation → c2w,
+which datagen writes), background coordinates and pinhole rays on the host
+(numpy), and the ray / background-coordinate rebuild of a training batch
+from its pixel indices on the device (torch)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import torch
 __all__ = [
     "nerf_matrix_to_ngp",
     "convert_poses",
+    "euler_to_matrix",
+    "euler_trans_to_c2w",
     "get_bg_coords",
     "get_rays",
     "get_rays_device",
@@ -46,6 +49,36 @@ def convert_poses(poses: np.ndarray) -> np.ndarray:
     """[B, 4, 4] c2w → [B, 6] (3 euler-XYZ, 3 translation)."""
     p = np.asarray(poses, np.float32)
     return np.concatenate([_matrix_to_euler(p[:, :3, :3]), p[:, :3, 3]], axis=-1)
+
+
+def euler_to_matrix(euler: np.ndarray) -> np.ndarray:
+    """Intrinsic-XYZ euler [..., 3] → rotation matrices [..., 3, 3]
+    (``R = Rx(a) @ Ry(b) @ Rz(c)``)."""
+    e = np.asarray(euler, np.float32)
+    a, b, c = e[..., 0], e[..., 1], e[..., 2]
+    ca, sa = np.cos(a), np.sin(a)
+    cb, sb = np.cos(b), np.sin(b)
+    cc, sc = np.cos(c), np.sin(c)
+    m = np.empty(e.shape[:-1] + (3, 3), np.float32)
+    m[..., 0, 0] = cb * cc
+    m[..., 0, 1] = -cb * sc
+    m[..., 0, 2] = sb
+    m[..., 1, 0] = sa * sb * cc + ca * sc
+    m[..., 1, 1] = -sa * sb * sc + ca * cc
+    m[..., 1, 2] = -sa * cb
+    m[..., 2, 0] = -ca * sb * cc + sa * sc
+    m[..., 2, 1] = ca * sb * sc + sa * cc
+    m[..., 2, 2] = ca * cb
+    return m
+
+
+def euler_trans_to_c2w(euler: np.ndarray, trans: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`convert_poses`: euler [B, 3] + trans [B, 3] → [B, 4, 4]."""
+    B = euler.shape[0]
+    out = np.tile(np.eye(4, dtype=np.float32), (B, 1, 1))
+    out[:, :3, :3] = euler_to_matrix(euler)
+    out[:, :3, 3] = trans
+    return out
 
 
 def get_bg_coords(H: int, W: int) -> np.ndarray:

@@ -33,6 +33,10 @@ from geneface_tpu_torch.models.audio2motion.vae import (
 )
 from geneface_tpu_torch.utils.pitch import coarse_to_f0, f0_to_coarse
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -30,6 +30,10 @@ from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkp
 from tools.make_synthetic_lrs3 import make_lrs3
 from torch_audio_helpers import perturbed
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 @pytest.fixture(scope="module")
 def lrs3_dir(tmp_path_factory):
     return make_lrs3(str(tmp_path_factory.mktemp("lrs3")), n_train=6, n_val=2)

@@ -46,6 +46,10 @@ from geneface_tpu_torch.models.radnerf import model_from_cfg
 from geneface_tpu_torch.tasks import run
 from test_torch_infer import _cfg
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 from chip_smoke import planted_occupancy, write_voiced_wav  # noqa: E402

@@ -31,6 +31,10 @@ from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkp
 from tools.make_synthetic_lrs3 import make_lrs3
 from torch_audio_helpers import flat as _flat
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -16,7 +16,10 @@ the grid forward (corner sums in another order) rtol 1e-6, atol 1e-7; the
 grid backward's table gradients (atomic order) rtol 1e-5, atol 1e-6·max,
 its input gradients rtol 1e-4, atol 1e-6·max (the reference and block
 encoders of the import layout are held so too); a float32 frame (head, or
-head+torso) on the card vs the CPU — 1e-5 absolute per pixel.
+head+torso) on the card vs the CPU — 1e-5 absolute per pixel; the datagen
+splat's weights and colours (K1 sums in another order) and its gradients
+(K8 adjoint) 1e-5 of max, the datagen networks' outputs 1e-5 of max |CPU|
+(TF32 off).
 """
 
 import os
@@ -415,3 +418,75 @@ def test_clip_gathers_on_card_match_cpu(card):
     for a, b in zip(out["cuda"][:2], out["cpu"][:2]):
         assert torch.equal(a, b)
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=1e-5, atol=1e-5)
+
+
+def test_face_splat_on_card_matches_cpu(card):
+    """The datagen renderer's two K1 sites (normals, splat) and their K8
+    adjoints on the card: one launch each way per site; the render and the
+    photometric loss's gradients against the CPU plain path."""
+    from torch_datagen_helpers import smooth_track, sphere_cap, torch_full_basis
+
+    from geneface_tpu_torch.datagen import face_renderer as R
+    from geneface_tpu_torch.datagen.face_tracker import _cam_geometry
+
+    rng = np.random.RandomState(0)
+    b = torch_full_basis(sphere_cap(rng, nu=120, nv=120))
+    tr = smooth_track(rng, 4, 6, 4)
+    cam = _cam_geometry(b, *(torch.as_tensor(tr[k]) for k in ("id", "exp", "euler", "trans")))
+    light = torch.from_numpy((rng.randn(4, 27) * 0.2).astype(np.float32))
+    target = torch.from_numpy(rng.rand(4, 64, 64, 3).astype(np.float32))
+    cxy = torch.tensor([128.0, 128.0])
+    out = {}
+    for dev in (card, torch.device("cpu")):
+        c = cam.to(dev).requires_grad_(True)
+        g = light.to(dev).requires_grad_(True)
+        before = dict(LAUNCHES)
+        albedo = b.tex_mean.to(dev).reshape(1, -1, 3)
+        colors = albedo * R.sh9_irradiance(R.vertex_normals(c, b.tris.to(dev)), g)
+        rgb, w = R.render_vertices_soft(c, colors, 500.0, cxy.to(dev), 256, 256, scale=4)
+        R.photometric_loss(rgb, w, target.to(dev)).backward()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            assert LAUNCHES["scatter_add_rows"] - before["scatter_add_rows"] == 2
+            assert LAUNCHES["gather_rows"] - before["gather_rows"] == 2
+        out[dev.type] = [t.detach().cpu() for t in (rgb, w, c.grad, g.grad)]
+    assert float(out["cpu"][1].max()) > 0.5  # the face covers pixels
+    for got, want in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("name", ["bisenet", "fan", "recon"])
+def test_datagen_nets_on_card_match_cpu(card, name):
+    from geneface_tpu_torch.datagen.face_landmarker import FAN
+    from geneface_tpu_torch.datagen.face_parser import BiSeNet
+    from geneface_tpu_torch.datagen.face_recon import ReconNet
+    from geneface_tpu_torch.models.layers import init_weights_
+
+    from geneface_tpu_torch import set_full_fp32
+
+    set_full_fp32()
+    model, side = {"bisenet": (BiSeNet, 128), "fan": (FAN, 256), "recon": (ReconNet, 224)}[name]
+    net = init_weights_(model(), torch.Generator().manual_seed(0)).eval()
+    x = torch.rand(2, side, side, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = net(x)
+        got = net.to(card)(x.to(card)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_landmark_fit_on_card_picks_the_cpu_focal(card):
+    from torch_datagen_helpers import smooth_track, sphere_cap, torch_lm_basis
+
+    from geneface_tpu_torch.datagen.face_tracker import fit_sequence, project_landmarks
+
+    rng = np.random.RandomState(0)
+    basis = torch_lm_basis(sphere_cap(rng))
+    tr = smooth_track(rng, 12, 6, 4)
+    lms = project_landmarks(basis, *(torch.as_tensor(tr[k]) for k in ("id", "exp", "euler",
+                                                                        "trans")),
+                            700.0, torch.tensor([256.0, 256.0])).numpy()
+    kw = dict(coarse_steps=60, refine_steps=60, coarse_every=4)
+    got = fit_sequence(lms, basis, 512, 512, device="cuda", **kw)
+    want = fit_sequence(lms, basis, 512, 512, device="cpu", **kw)
+    assert got["focal"] == want["focal"] == 700.0
+    np.testing.assert_allclose(got["trans"], want["trans"], rtol=1e-3, atol=1e-4)

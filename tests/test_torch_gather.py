@@ -25,6 +25,10 @@ from geneface_tpu_torch.ops.scatter import (
 )
 from geneface_tpu_torch.ops.gather import pick_gather_path
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize(
     "M,R,W,dtype",

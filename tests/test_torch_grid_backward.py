@@ -26,6 +26,10 @@ from geneface_tpu_torch.ops import (
 )
 from geneface_tpu_torch.ops.scatter import LAUNCHES
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 def _case(D, ungroup, interpolation, seed, M=2000):
     kw = dict(

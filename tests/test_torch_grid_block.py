@@ -27,6 +27,10 @@ from geneface_tpu.ops import encoders as J
 from geneface_tpu_torch.ops import encoders as T
 from geneface_tpu_torch.ops.scatter import LAUNCHES, scatter_add_rows_plain
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 EPS = 2.0**-24
 
 

@@ -22,6 +22,10 @@ from geneface_tpu_torch.convert import flax_variables, load_flax_variables
 from geneface_tpu_torch.datagen.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
 from geneface_tpu_torch.utils.audio import extract_hubert
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 TINY = dict(
     vocab_size=0, hidden_size=64, num_hidden_layers=3, num_attention_heads=4,
     intermediate_size=128, conv_dim=(32, 32, 32), conv_stride=(5, 2, 2),

@@ -31,6 +31,10 @@ from geneface_tpu_torch.models.radnerf import model_from_cfg
 from geneface_tpu_torch.utils import torch_import as ti
 from geneface_tpu_torch.utils.checkpoint import load_checkpoint
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 CFG = dict(
     cond_type="idexp_lm3d_normalized", cond_out_dim=16, cond_win_size=1, smo_win_size=3,
     with_att=True, bound=1, grid_type="tiledgrid", log2_hashmap_size=12,

@@ -33,6 +33,10 @@ from geneface_tpu.tasks.radnerf import model_from_cfg as jmodel_from_cfg
 from geneface_tpu_torch.inference import RADNeRFInfer
 from geneface_tpu_torch.utils import torch_import as ti
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 HW = 96
 
 

@@ -36,6 +36,10 @@ from geneface_tpu_torch.training.optim import torso_label_fn
 from geneface_tpu_torch.utils import torch_import as ti
 from geneface_tpu_torch.utils.checkpoint import load_checkpoint
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):

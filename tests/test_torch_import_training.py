@@ -22,6 +22,10 @@ from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
 from geneface_tpu_torch.utils import torch_import as ti
 from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def scene(tmp_path_factory):

@@ -10,10 +10,15 @@ import os
 
 import numpy as np
 import pytest
+import torch
 import yaml
 from torch_import_scene import REPO, STEP, make_scene
 
 from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
+
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")

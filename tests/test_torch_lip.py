@@ -47,6 +47,10 @@ from tools.make_synthetic_dataset import make_dataset  # noqa: E402
 
 from test_torch_training import tiny_cfg  # noqa: E402
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: training samples with landmarks (one centred, one whose patch is
 #: clipped at the frame's edge) and one with a stored lip rect

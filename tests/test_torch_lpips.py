@@ -33,6 +33,10 @@ from tools.make_synthetic_dataset import make_dataset  # noqa: E402
 
 from test_torch_training import tiny_cfg  # noqa: E402
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def models():

@@ -33,6 +33,10 @@ from geneface_tpu_torch.ops import (
     waterfill_valid,
 )
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 def _t(a):
     return torch.from_numpy(np.array(a))

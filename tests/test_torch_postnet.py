@@ -30,6 +30,10 @@ from geneface_tpu_torch.inference.landmark_postprocess import lle_project_lm3d
 from geneface_tpu_torch.models.postnet import lle
 from geneface_tpu_torch.models.postnet.models import CNNPostNet, PitchContourCNNPostNet
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 def perturbed(variables, seed=0, scale=0.1):
     rng = np.random.RandomState(seed)

@@ -51,6 +51,10 @@ from tools.make_synthetic_lrs3 import make_lrs3
 from torch_audio_helpers import flat as _flat
 from torch_audio_helpers import perturbed, rel_l2
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 PITCH_CLS = "geneface_tpu.tasks.audio2motion.PitchContourVAESyncTask"
 
 

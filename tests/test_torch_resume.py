@@ -69,6 +69,10 @@ from test_torch_torso_training import _ball  # noqa: E402
 from test_torch_torso_training import tiny_cfg as torso_tiny_cfg  # noqa: E402
 from test_torch_training import _tiny_models, tiny_cfg  # noqa: E402
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 def run_cfg(data, work, **over):
     """4 steps, validation (and a checkpoint) every 2, both kept; the

@@ -30,6 +30,10 @@ from geneface_tpu_torch.ops.scatter import (
     smem_plan,
 )
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 
 def _port(rows, upd, R, dtype=torch.float32):
     return scatter_add_rows(

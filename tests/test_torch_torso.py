@@ -50,6 +50,10 @@ from geneface_tpu_torch.ops import (
 )
 from geneface_tpu_torch.utils.checkpoint import restore_partial
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 CFG = dict(
     cond_type="idexp_lm3d_normalized", cond_win_size=1, smo_win_size=3,
     cond_out_dim=16, with_att=True, bound=1, grid_type="tiledgrid",

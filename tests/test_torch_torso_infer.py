@@ -34,6 +34,10 @@ from geneface_tpu_torch.ops.scatter import LAUNCHES
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from tools.make_synthetic_dataset import make_dataset  # noqa: E402
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 HW = 64
 
 

@@ -42,6 +42,10 @@ from geneface_tpu_torch.training.optim import torso_label_fn
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 from tools.make_synthetic_dataset import make_dataset  # noqa: E402
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

@@ -33,6 +33,10 @@ from geneface_tpu_torch.models.audio2motion.vae import PitchContourVAEModel, VAE
 from torch_audio_helpers import flat as _flat
 from torch_audio_helpers import perturbed, rel_l2
 
+# one intra-op thread: the suite runs in parallel workers, where torch's
+# default of one thread per core oversubscribes the host
+torch.set_num_threads(1)
+
 B, T = 2, 32
 
 
