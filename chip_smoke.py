@@ -2,11 +2,13 @@
 
     python3 chip_smoke.py
 
-Drives the port's ten paths at the full width of
+Drives the port's twelve paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
-on a 512² synthetic 8-frame dataset, and of HuBERT-large, ``VAEModel(204)``
+on a 512² synthetic 8-frame dataset, of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
-with random weights from a seeded ``torch.Generator``:
+and of the vanilla NeRF (``egs/egs_bases/nerf/lm3d_nerf.yaml``,
+``lm3d_nerf_torso.yaml``), with random weights from a seeded
+``torch.Generator``:
 
 - head serving: the occupancy ball of ``bench.py`` (radius 0.6) and
   ``RADNeRFInfer.render_frames`` on ``cuda``, the frame checked against the
@@ -82,7 +84,21 @@ with random weights from a seeded ``torch.Generator``:
   held against the CPU plain path on the card's inputs; ms/frame of
   parse, FAN and recon, the fit's and the refinement's seconds, the
   photometric step's idle share (``smoke_out/datagen_photo_step_profile.txt``)
-  and the ``gf::parse/fan/track/photo/recon`` spans.
+  and the ``gf::parse/fan/track/photo/recon`` spans;
+- the vanilla NeRF serving (``nerf_serve``): seeded ``Lm3dNeRF`` and
+  ``ADNeRFTorso`` checkpoints at the shipped widths (backbones 256 wide, 64
+  + 128 samples), ``LM3dNeRFInfer.run`` of a seeded predicted lm3d through
+  the clean-up to 2 head frames and then 2 head+torso frames at 512² with
+  their mp4s; ms/frame, the device time by stage (backbone products,
+  ``freq_encode``, composite, ``sample_pdf`` with its sort), the idle
+  share, and a 1,024-ray chunk of each held against the CPU on the card's
+  fine samples;
+- the vanilla NeRF training (``nerf_train``): 8 ``Lm3dNeRFTask`` steps of
+  1,600 rays (the attention from step 3), then 6 ``Lm3dNeRFTorsoTask``
+  steps on that head, the head bit-identical afterwards; ms/step, rays/s,
+  the idle share, and one step of each on 256 rays held against the CPU on
+  the card's draws, fine samples and ReLU decisions. Neither path launches
+  K1 or K8, and the script checks that too.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
@@ -103,7 +119,7 @@ and the idle share of a frame and of a step of each path
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call; a reference or block grid
 site is named by grid, level and backend), and one ``{"kernels": [...]}``
-JSON line listing every site of the ten paths.
+JSON line listing every site of the twelve paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -445,8 +461,8 @@ def _wrapper_patches():
 
 
 def capture_calls(run) -> list:
-    """``(kind, args, owner)`` of every kernel call that ``run()`` makes, with
-    the tensor arguments cloned, in call order. ``owner`` is ``(id(fused
+    """``(kind, args, owner, kwargs)`` of every kernel call that ``run()``
+    makes, with the tensor arguments cloned, in call order. ``owner`` is ``(id(fused
     grid meta), group)`` for the fused grid's calls (read from the calling
     frame of ``ops/fused_grid.py``), else from the calling frame's ``site``:
     ``("level", id(grid meta), level, backend)`` for the reference and
@@ -461,7 +477,7 @@ def capture_calls(run) -> list:
     reals = [getattr(mod, name) for mod, name, _ in patches]
 
     def recorder(real, kind):
-        def call(*args):
+        def call(*args, **kw):
             caller = sys._getframe(1).f_locals
             site = caller.get("site")
             if kind.startswith("grid"):
@@ -473,8 +489,8 @@ def capture_calls(run) -> list:
             else:  # a reference or block grid level
                 owner = ("level", id(site[0]), site[1], site[2])
             calls.append((kind, tuple(a.clone() if torch.is_tensor(a) else a for a in args),
-                          owner))
-            return real(*args)
+                          owner, kw))
+            return real(*args, **kw)
 
         return call
 
@@ -493,17 +509,18 @@ def median_ms(fn, windows: int = 3) -> float:
     return sorted(device_ms(fn) for _ in range(windows))[windows // 2]
 
 
-def measure_scatter(rows, updates, n_rows, exact: bool) -> dict:
+def measure_scatter(rows, updates, n_rows, exact: bool, spread: bool = False) -> dict:
     """K1 on one captured call: every variant that takes the shape held
     against the plain version, then timed in turns (three rounds over the
-    variants and ``index_add_``, the median of each)."""
+    variants and ``index_add_``, the median of each); ``spread`` as the
+    call passed it to the dispatcher."""
     import torch
 
     from geneface_tpu_torch.ops import scatter as sc
 
     M, W = updates.shape
     shape = (M, W, int(n_rows), updates.element_size(), updates.data_ptr() % 16 == 0)
-    chosen = sc.pick_scatter_variant(*shape)
+    chosen = sc.pick_scatter_variant(*shape, spread=spread)
     accepted = [v for v in sc.VARIANTS if sc.scatter_variant_accepts(v, *shape)]
     if chosen not in accepted:
         raise AssertionError(f"the dispatcher chose {chosen}, which does not take {shape}")
@@ -634,11 +651,11 @@ def grid_names(model) -> dict:
 
 def name_sites(calls, grids: dict, path: str) -> dict:
     """First captured call of each distinct site of one path → ``{site:
-    (kernel, kind, args)}``; grid sites are named by the grid and group (or
+    (kernel, kind, args, kwargs)}``; grid sites are named by the grid and group (or
     level and backend) that own the table, the renderer's scatters by their
     label."""
     sites = {}
-    for kind, args, owner in calls:
+    for kind, args, owner, kw in calls:
         if owner[0] == "datagen":  # the face renderer's scatters, or their adjoint
             scatter = kind == "scatter_add_rows"
             site = f"{path}.{owner[1]}" + ("" if scatter else ".backward_gather")
@@ -665,19 +682,19 @@ def name_sites(calls, grids: dict, path: str) -> dict:
         else:
             site = f"{path}.{owner[1]}.backward_gather"
             kernel = "gather_rows"
-        sites.setdefault(site, (kernel, kind, args))
+        sites.setdefault(site, (kernel, kind, args, kw))
     return sites
 
 
 def measure_sites(sites: dict, per_call: dict) -> list:
     """Time every site; ``per_call[site]`` = launches per step or frame."""
     out = []
-    for site, (kernel, kind, args) in sites.items():
+    for site, (kernel, kind, args, kw) in sites.items():
         if kernel == "gather_rows":
             m = measure_gather(*args)
         else:
             exact = site.endswith("frame_scatter")
-            m = measure_scatter(*args, exact=exact)
+            m = measure_scatter(*args, exact=exact, **kw)
         m.update(site=site, kernel=kernel, launches_per_call=per_call.get(site, 1))
         out.append(m)
         bound = max(m["bytes_ms"], m["ops_ms"])
@@ -1245,18 +1262,22 @@ def write_lrs3_store(out_dir: str, n_train: int, n_val: int, seed: int = 0) -> s
 
 class CardDecisions:
     """The ReLU and leaky-ReLU decisions of SyncNet, the post-net and its
-    discriminator, taken on the card and replayed on the CPU: the same
-    pre-activation can round to either side of zero on the two devices
-    (~1e6 of them per step in the frozen SyncNet's 26 ReLU layers), and a
-    unit that turns the other way moves the gradients below it by up to a
-    percent (seen in the CPU tests against JAX). Inside :meth:`record` the
-    modules' ``F.relu``/``F.leaky_relu`` run as they are and note which
-    elements pass; inside :meth:`replay` the CPU run passes exactly those
-    (the CPU's own values, its own gradient through them) and counts the
-    elements whose own decision differed."""
+    discriminator (or of the given modules), taken on the card and replayed
+    on the CPU: the same pre-activation can round to either side of zero on
+    the two devices (~1e6 of them per step in the frozen SyncNet's 26 ReLU
+    layers), and a unit that turns the other way moves the gradients below
+    it by up to a percent (seen in the CPU tests against JAX). Inside
+    :meth:`record` the modules' ``F.relu``/``F.leaky_relu`` run as they are
+    and note which elements pass, and ``F.max_pool2d`` notes the element
+    each window picks; inside :meth:`replay` the CPU run passes exactly
+    those elements and picks those (the CPU's own values, its own gradient
+    through them) and counts the elements whose own decision differed."""
 
-    def __init__(self):
+    def __init__(self, modules: tuple | None = None):
+        """``modules``: those whose ``F`` is patched (default SyncNet's and
+        the post-net's)."""
         self.masks, self.flips, self.elements = [], 0, 0
+        self.modules = modules
 
     def _patched(self, record: bool):
         import contextlib
@@ -1281,6 +1302,18 @@ class CardDecisions:
             owner.elements += x.numel()
             return torch.where(card, x, slope * x)
 
+        def pick(x, *args, **kw):
+            y, idx = F.max_pool2d(x, *args, return_indices=True, **kw)
+            if record:
+                owner.masks.append(idx.detach())
+                return y
+            card = owner.masks[next(calls)].to(x.device)
+            if card.shape != idx.shape:
+                raise AssertionError(f"max-pool {card.shape} on the card, {idx.shape} on CPU")
+            owner.flips += int((card != idx).sum())
+            owner.elements += idx.numel()
+            return x.flatten(2).gather(2, card.flatten(2)).view_as(y)
+
         class Functional:
             def __getattr__(self, name):
                 return getattr(F, name)
@@ -1291,9 +1324,12 @@ class CardDecisions:
             def leaky_relu(self, x, negative_slope=0.01):
                 return decide(x, negative_slope)
 
+            def max_pool2d(self, x, *args, **kw):
+                return pick(x, *args, **kw)
+
         @contextlib.contextmanager
         def patch():
-            mods = (syncnet_models, postnet_models)
+            mods = owner.modules or (syncnet_models, postnet_models)
             for m in mods:
                 m.F = Functional()
             try:
@@ -1669,10 +1705,27 @@ def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> d
     read 4e-5. So the CPU side looks the ambient grid up at the card's
     ambient logits in the same way (the card's values, the gradient through
     the CPU's own ambient MLP), and the logits are held card vs CPU: max
-    abs error <= 1e-4 of their largest magnitude."""
+    abs error <= 1e-4 of their largest magnitude.
+
+    The MLPs' ReLU and the attention net's leaky-ReLU decisions, and the
+    LPIPS tower's ReLU and max-pool choices, are the card's on the CPU side
+    too (:class:`CardDecisions`): a pre-activation that rounds to the other
+    side of zero, or a max-pool window whose two largest elements round
+    apart, sends the gradient another way. One max-pool choice of the lip
+    step's LPIPS moved the gradient reaching the rendered patch by
+    percents, and with it every gradient of the step: a lip step read 0.566
+    at the attention conv's bias, 0.19 at its weights and 2.3e-2 at the
+    position grid's hash group in one call on an H100 80GB HBM3 at 700 W,
+    where others read 1e-5. When the CPU's own decisions differ from the
+    card's somewhere, the step runs once more on the CPU with its own, and
+    that run's worst gradient is printed beside the held one (reported,
+    not held)."""
+    import contextlib
+
     import torch
 
-    from geneface_tpu_torch.models.radnerf import OccupancyState
+    from geneface_tpu_torch.models import lpips
+    from geneface_tpu_torch.models.radnerf import OccupancyState, cond_encoder
 
     cut = {k: (v[:CHECK_RAYS] if k in ("inds", "gt_img_u8", "bg_img_u8", "bg_torso_img_u8")
                else v) for k, v in batch.items()}
@@ -1681,60 +1734,72 @@ def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> d
     occ = [x.cpu() for x in task.occ]
     deform = {}
 
-    def same_deform(dev):
+    def same_deform(side):
         def hook(module, inputs, dxy):
-            deform[dev] = dxy.detach().cpu()
-            if dev == "cpu":  # the card's values, plus an exact zero that carries the gradient
+            deform[side] = dxy.detach().cpu()
+            if side != "cuda":  # the card's values, plus an exact zero that carries the gradient
                 return deform["cuda"] + (dxy - dxy.detach())
             return None
 
         return hook
 
-    ambient = {"cuda": [], "cpu": []}
+    ambient = {"cuda": [], "cpu": [], "cpu_own": []}
 
-    def same_ambient(dev):
+    def same_ambient(side):
         def hook(module, inputs, logits):
-            ambient[dev].append([x.detach().cpu() for x in logits])
-            if dev == "cpu":  # the card's values of the same call, the CPU's gradient
-                card = ambient["cuda"][len(ambient["cpu"]) - 1]
+            ambient[side].append([x.detach().cpu() for x in logits])
+            if side != "cuda":  # the card's values of the same call, the CPU's gradient
+                card = ambient["cuda"][len(ambient[side]) - 1]
                 return tuple(c + (x - x.detach()) for c, x in zip(card, logits))
             return None
 
         return hook
 
+    decisions = CardDecisions((cond_encoder, lpips))
     out = {}
-    for dev in ("cuda", "cpu"):
+    for side in ("cuda", "cpu", "cpu_own"):
+        if side == "cpu_own" and not decisions.flips:
+            break
+        dev = "cuda" if side == "cuda" else "cpu"
         t = type(task)(task.cfg, device=dev, dtype=torch.float32)
         t.build()
         t.model.load_state_dict(params)
-        t.model.ambient_net.register_forward_hook(same_ambient(dev))
+        t.model.ambient_net.register_forward_hook(same_ambient(side))
         t.set_occupancy(OccupancyState(*[x.to(t.device) for x in occ]))
         if hasattr(task, "torso_occ"):
             t.torso_occ = type(task.torso_occ)(*[x.to(t.device) for x in task.torso_occ])
-            t.model.torso_deform_net.register_forward_hook(same_deform(dev))
+            t.model.torso_deform_net.register_forward_hook(same_deform(side))
         else:
             t._spr_bucket, t._latk_bucket = task._spr_bucket, task._latk_bucket
         dbatch = t.device_batch(cut, task._step)
-        if dev == "cuda":
+        if side == "cuda":
             rays = {k: dbatch[k].detach().cpu() for k in ("rays_o", "rays_d")}
         else:  # the card's rays, held to the CPU's first
             ray_err = max(float((dbatch[k] - v).abs().max()) for k, v in rays.items())
             dbatch.update(rays)
-        loss, losses = t.loss_fn(dbatch, noises.to(t.device), train=True,
-                                 **({"lip": True} if lip else {}))
-        loss.backward()
-        out[dev] = (float(loss.detach()), float(losses["mean_samples"]),
+        with {"cuda": decisions.record, "cpu": decisions.replay}.get(
+                side, contextlib.nullcontext)():
+            loss, losses = t.loss_fn(dbatch, noises.to(t.device), train=True,
+                                     **({"lip": True} if lip else {}))
+            loss.backward()
+        out[side] = (float(loss.detach()), float(losses["mean_samples"]),
                     {n: p.grad.detach().cpu().double() for n, p in t.model.named_parameters()
                      if p.grad is not None})
     (lg, sg, gg), (lc, sc_, gc) = out["cuda"], out["cpu"]
     if gg.keys() != gc.keys() or not gc:
         raise AssertionError(f"{path}: gradients of {sorted(gg)} on the card, {sorted(gc)} on CPU")
-    errs = {n: float((gg[n] - g).norm() / g.norm()) if g.norm() > 0 else float(gg[n].norm())
-            for n, g in gc.items()}
+
+    def rel_errs(grads):
+        return {n: float((gg[n] - g).norm() / g.norm()) if g.norm() > 0
+                else float(gg[n].norm()) for n, g in grads.items()}
+
+    errs = rel_errs(gc)
+    own = rel_errs(out["cpu_own"][2]) if "cpu_own" in out else {}
     bad = {n: e for n, e in errs.items() if not e <= 0.1}
     if bad:
         raise AssertionError(f"{path}: relative L2 error of gradients card vs CPU {bad}; "
-                             f"all: {errs}")
+                             f"all: {errs}; decisions that differed on the CPU: "
+                             f"{decisions.flips} of {decisions.elements}")
     # the march rounds its positions as on the CPU: the same samples
     if abs(lg - lc) > 1e-3 * abs(lc) or sg != sc_:
         raise AssertionError(f"{path}: loss {lg} vs {lc} / mean samples {sg} vs {sc_}")
@@ -1743,7 +1808,10 @@ def check_grads_vs_cpu(task, batch, path: str = "train", lip: bool = False) -> d
     res = {"rays": CHECK_RAYS, "mlp_dtype": "float32", "loss_cuda": lg, "loss_cpu": lc,
            "mean_samples": sg, "worst_grad_rel_l2": max(errs.values()),
            "worst_grad": max(errs, key=errs.get), "rays_max_abs_err": ray_err,
-           "n_params_with_grad": len(gc)}
+           "n_params_with_grad": len(gc), "decisions_replayed": decisions.elements,
+           "decisions_differing_on_cpu": decisions.flips,
+           "worst_grad_rel_l2_own_decisions": max(own.values()) if own else None,
+           "worst_grad_own_decisions": max(own, key=own.get) if own else None}
     if len(ambient["cpu"]) != len(ambient["cuda"]) or not ambient["cpu"]:
         raise AssertionError(f"{path}: ambient MLP calls {len(ambient['cuda'])} on the card, "
                              f"{len(ambient['cpu'])} on the CPU")
@@ -2731,7 +2799,7 @@ def datagen_checks(path, parser, fan, recon, video, man, fb, lb, lm_track) -> di
     cpu_args = (cam.cpu(), colors.cpu(), focal.cpu(), cxy.cpu(), DATAGEN_HW, DATAGEN_HW)
     calls = capture_calls(lambda: R.render_vertices_soft(*cpu_args, scale=4))
     rgb_c, w_c = R.render_vertices_soft(*cpu_args, scale=4)
-    _, (rows, upd, n_rows), _ = next(c for c in calls if c[2] == ("datagen", "splat"))
+    _, (rows, upd, n_rows), _, _ = next(c for c in calls if c[2] == ("datagen", "splat"))
     kept = (rows >= 0) & (rows < n_rows)
     cnt = torch.bincount(rows[kept].long(), minlength=n_rows).float()[:, None]
     mag = scatter_add_rows_plain(rows, upd.abs(), n_rows)
@@ -2861,6 +2929,345 @@ def datagen_profiles(path, out_dir, parser, fan, recon, video, man, fb, lb) -> d
             "spans_ms": span_ms, "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
 
 
+#: the vanilla NeRF cells: the shipped configs at their base widths (hidden
+#: 256, cond 64, 64 + 128 samples, 1,600 rays a step); frames rendered per
+#: video and their seeded lm3d; head and torso steps (the attention from
+#: head step 3 on); the card-vs-CPU cuts
+NERF_YAML = "egs/egs_bases/nerf/lm3d_nerf.yaml"
+NERF_TORSO_YAML = "egs/egs_bases/nerf/lm3d_nerf_torso.yaml"
+NERF_FRAMES = 2
+NERF_HEAD_STEPS = 8
+NERF_NO_SMO = 3
+NERF_TORSO_STEPS = 6
+NERF_CHECK_RAYS = 1024
+NERF_STEP_CHECK_RAYS = 256
+#: card vs CPU bounds: a chunk's pixels (max abs, the CPU on the card's fine
+#: samples), a step's loss (relative) and each gradient leaf (relative L2;
+#: the CPU on the card's samples and ReLU decisions)
+NERF_FRAME_BOUND = 1e-3
+NERF_LOSS_BOUND = 1e-5
+NERF_GRAD_BOUND = 1e-3
+
+
+def nerf_cfg(cfg: dict, torso: bool = False) -> dict:
+    """A vanilla NeRF cell: the shipped base config (``lm3d_nerf.yaml``, or
+    ``lm3d_nerf_torso.yaml`` on the head's work dir) on the scene's data,
+    its seeded checkpoint's work dir."""
+    from geneface_tpu_torch.config.config import load_config
+
+    root = os.path.dirname(cfg["work_dir"])
+    out = dict(load_config(os.path.join(REPO, NERF_TORSO_YAML if torso else NERF_YAML)))
+    out.update(data_dir=cfg["data_dir"], work_dir=os.path.join(root, "nerf_head"), seed=0,
+               infer_lm3d_clamp_std=2.5, infer_inject_eye_blink_mode="gt",
+               infer_lm3d_smooth_sigma=1.0)
+    if torso:
+        out.update(work_dir=os.path.join(root, "nerf_torso"), head_model_dir=out["work_dir"])
+    return out
+
+
+def write_nerf_checkpoints(cfg: dict) -> None:
+    """Seeded ``Lm3dNeRF`` head and ``ADNeRFTorso`` torso at the configs'
+    widths as JAX-layout checkpoints; the sigma biases at 3 keep the fields
+    translucent (at the bare init ReLU cuts most sigmas to 0)."""
+    import torch
+
+    from geneface_tpu_torch.convert import nerf_state_dict_to_flax
+    from geneface_tpu_torch.tasks.lm3d_nerf import Lm3dNeRFTorsoTask
+    from geneface_tpu_torch.utils.checkpoint import save_checkpoint
+
+    tcfg = nerf_cfg(cfg, torso=True)
+    task = Lm3dNeRFTorsoTask(tcfg, device="cpu")
+    for i, (model, work) in enumerate(((task.make_model(), tcfg["head_model_dir"]),
+                                       (task.make_torso_model(), tcfg["work_dir"]))):
+        model.reset_parameters(torch.Generator().manual_seed(10 + i))
+        with torch.no_grad():
+            for net in (model.model_coarse, model.model_fine):
+                net.layers[net.num_density_linears].bias.fill_(3.0)
+        save_checkpoint(os.path.join(work, "model_ckpt_steps_0.ckpt"),
+                        {"state": {"params": nerf_state_dict_to_flax(model.state_dict())},
+                         "step": 0})
+
+
+def nerf_profile(run, out_dir: str, name: str, wall_ms: float) -> dict:
+    """Device time of ``run()`` by kernel and the ``gf::`` spans (the
+    backbone products, ``freq_encode``, the composite, ``sample_pdf`` with
+    its sort), from ``torch.profiler``; the table goes to
+    ``out_dir/<name>_profile.txt``."""
+    from torch.profiler import ProfilerActivity
+
+    kernels, stages, busy = kernel_table(
+        profiled(run, [ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as f:
+        f.write(f"wall {wall_ms:.3f} ms, device busy {fmt_ms(busy, ' ms')}\n")
+        for stage, ms in sorted(stages.items(), key=lambda s: -s[1]):
+            f.write(f"stage {stage:24s} {ms:9.3f} ms\n")
+        for kname, ms, n in kernels:
+            f.write(f"{ms:9.3f} ms {n:5d}x {kname}\n")
+    gemm = sum(ms for k, ms, _ in kernels if "gemm" in k.lower() or "sgemm" in k.lower())
+    return {"wall_ms": wall_ms, "device_busy_ms": busy,
+            "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall_ms),
+            "stages_ms": stages, "gemm_kernels_ms": gemm if kernels else None,
+            "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
+
+
+def nerf_chunk_vs_cpu(infer, conds, path: str, name: str) -> float:
+    """A ``NERF_CHECK_RAYS`` chunk through the face of frame 0 on the card,
+    then on the port's CPU path fed the card's fine samples."""
+    import torch
+
+    from geneface_tpu_torch.inference.nerf_infer import LM3dNeRFInfer
+
+    x = infer.frame_inputs(0, conds)
+    N = x["bg"].shape[0]
+    sl = slice(N // 2 - NERF_CHECK_RAYS // 2, N // 2 + NERF_CHECK_RAYS // 2)
+    with torch.no_grad():
+        args = [x[k] for k in ("cond_wins", "euler", "trans")]
+        feat = infer.model.cal_cond_feat(x["cond_wins"], True)
+        card, zs = infer.render_chunk([a[sl] for a in x["rays"]], x["bg"][sl], feat, *args)
+        cpu = LM3dNeRFInfer(infer.cfg, device="cpu")
+        cargs = [a.cpu() for a in args]
+        cfeat = cpu.model.cal_cond_feat(cargs[0], True)
+        ref, _ = cpu.render_chunk([a[sl].cpu() for a in x["rays"]], x["bg"][sl].cpu(), cfeat,
+                                  *cargs, z_samples=tuple(None if z is None else z.cpu()
+                                                          for z in zs))
+    return held(f"{name} chunk of {NERF_CHECK_RAYS} rays", card, ref, NERF_FRAME_BOUND,
+                relative=False, path=path)
+
+
+def nerf_serve_phase(cfg, out_dir: str, path: str = "nerf_serve") -> tuple:
+    """The vanilla renderer serving: ``LM3dNeRFInfer.run`` of a seeded
+    predicted lm3d through the clean-up (clamp, ground-truth blinks,
+    smoothing) to ``NERF_FRAMES`` 512² head frames with their mp4, then the
+    same through the head+torso; steady ms/frame, the profile by stage, and
+    a chunk of each held against the CPU → (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.inference.nerf_infer import LM3dNeRFInfer
+    from geneface_tpu_torch.kernels import LAUNCHES
+
+    write_nerf_checkpoints(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    npy = os.path.join(os.path.dirname(cfg["work_dir"]), "nerf_pred_lm3d.npy")
+    ds = np.load(os.path.join(cfg["data_dir"], "trainval_dataset.npy"), allow_pickle=True).item()
+    np.save(npy, (ds["idexp_lm3d_mean"][None] + 0.5 * ds["idexp_lm3d_std"][None]
+                  * np.random.RandomState(5).randn(NERF_FRAMES, 68, 3)).reshape(1, -1, 204))
+    record, launches = {}, {k: 0 for k in LAUNCHES}
+    for name, torso in (("head", False), ("head_torso", True)):
+        clock = [time.perf_counter()]
+        infer = LM3dNeRFInfer(nerf_cfg(cfg, torso))
+        out = os.path.join(out_dir, f"{path}_{name}.mp4")
+        # each frame of the run timed (its pixels come back to the host at
+        # its end); the second one is warm: the steady time
+        times, frames, render = [], [], infer.render_frame
+
+        def timed(i, conds):
+            ts = time.perf_counter()
+            frames.append(render(i, conds))
+            times.append((time.perf_counter() - ts) * 1e3)
+            return frames[-1]
+
+        infer.render_frame = timed
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        infer.run(npy, out)
+        torch.cuda.synchronize()
+        video_ms = (time.perf_counter() - t1) * 1e3 / NERF_FRAMES
+        infer.render_frame = render
+        for k in LAUNCHES:
+            launches[k] += LAUNCHES[k]
+        if not os.path.getsize(out) or len(times) != NERF_FRAMES:
+            raise AssertionError(f"{path}: {out} is empty, or {len(times)} frames")
+        clock.append(time.perf_counter())
+        conds = infer.get_conds(np.load(npy).reshape(-1, 68, 3))
+        steady, frame = times[-1], frames[0]
+        bg = infer.dataset[0]["bg_img"].reshape(frame.shape)
+        shown = float(np.abs(frame - bg).max())
+        if frame.shape != (HW, HW, 3) or not np.isfinite(frame).all() or shown < 0.02:
+            raise AssertionError(f"{path} {name}: frame {frame.shape}, shows {shown}")
+        prof = nerf_profile(lambda: infer.render_frame(0, conds), out_dir,
+                            f"{path}_frame" if not torso else f"{path}_torso_frame", steady)
+        clock.append(time.perf_counter())
+        err = nerf_chunk_vs_cpu(infer, conds, path, name)
+        clock.append(time.perf_counter())
+        parts = dict(zip(("set-up and run", "profile", "cpu check"),
+                         (round(b - a, 1) for a, b in zip(clock, clock[1:]))))
+        rays = HW * HW
+        samples = rays * (infer.render_kwargs["n_samples"] * 2
+                          + infer.render_kwargs["n_importance"]) * (2 if torso else 1)
+        print(f"{path} {name}: ms/frame video {video_ms:.3f} (run of {NERF_FRAMES} frames, "
+              f"conditions and mp4 included), frames ms {[round(t, 3) for t in times]}, "
+              f"steady (the last) {steady:.3f} ms "
+              f"({rays / steady * 1e3:.0f} rays/s, {samples / steady * 1e3:.4g} field samples/s)"
+              f"; device busy {fmt_ms(prof['device_busy_ms'], ' ms')}, idle share "
+              f"{fmt_ms(prof['idle_share'])}; GEMM kernels {fmt_ms(prof['gemm_kernels_ms'], ' ms')}"
+              "; stages ms " + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()})
+              + "; phase seconds " + json.dumps(parts))
+        record[name] = {"ms_per_frame_video": video_ms, "frames_ms": times, "steady_ms": steady,
+                        "profile": prof,
+                        "phase_seconds": parts,
+                        "chunk_vs_cpu_max_abs": err, "shows_max_abs": shown,
+                        "field_samples": samples}
+    if any(launches.values()):
+        raise AssertionError(f"{path}: the vanilla renderer launched {launches}")
+    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{path}: launches {json.dumps(launches)} (the vanilla path runs neither kernel); "
+          f"peak device memory {record['peak_memory_gb']:.3f} GB")
+    return record, launches, {}
+
+
+def nerf_step_vs_cpu(task, batch, path: str, name: str) -> dict:
+    """One step's loss and gradients on the first ``NERF_STEP_CHECK_RAYS``
+    rays of ``batch``: the card, then the port's CPU path on the same
+    parameters, draws, fine samples and ReLU decisions."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.models.nerf import backbone, models
+    from geneface_tpu_torch.models.radnerf import cond_encoder
+    from geneface_tpu_torch.ops import volume
+    from geneface_tpu_torch.tasks import lm3d_nerf
+
+    n = NERF_STEP_CHECK_RAYS
+    cut = {k: (v[:n] if k.startswith(("rays", "gt_img", "bg_img")) else v)
+           for k, v in batch.items()}
+    noise = task.draw_noise(n)
+    cpu = type(task)(task.cfg, device="cpu")
+    cpu.build()
+    cpu.trainable().load_state_dict(task.trainable().state_dict())
+    if cpu.model is not cpu.trainable():
+        cpu.model.load_state_dict(task.model.state_dict())
+    decisions = CardDecisions((backbone, models, cond_encoder))
+    samples = []
+
+    def card_render(*args, **kw):
+        out = volume.render_rays(*args, **kw)
+        samples.append(out["z_samples"].cpu())
+        return out
+
+    def cpu_render(*args, **kw):
+        return volume.render_rays(*args, z_samples=samples.pop(0), **kw)
+
+    out = []
+    for t, dev_noise, render, ctx in ((task, noise, card_render, decisions.record),
+                                      (cpu, {k: v.cpu() for k, v in noise.items()}, cpu_render,
+                                       decisions.replay)):
+        lm3d_nerf.render_rays = render
+        try:
+            with ctx():
+                t.optimizer.zero_grad(set_to_none=True)
+                loss, _ = t.loss_fn(t.device_batch(cut), dev_noise, task.with_att())
+                loss.backward()
+        finally:
+            lm3d_nerf.render_rays = volume.render_rays
+        out.append((float(loss.detach()), {k: p.grad.detach().cpu().double()
+                                  for k, p in t.trainable().named_parameters()
+                                  if p.grad is not None}))
+    task.optimizer.zero_grad(set_to_none=True)
+    (lc, gc), (lp, gp) = out
+    loss_rel = abs(lc - lp) / abs(lp)
+    if set(gc) != set(gp):
+        raise AssertionError(f"{path} {name}: gradients of {sorted(set(gc) ^ set(gp))}")
+    rel = {k: float(torch.linalg.norm(gc[k] - gp[k]) / torch.linalg.norm(gp[k]).clamp_min(1e-30))
+           for k in gp}
+    worst = max(rel, key=rel.get)
+    print(f"{path} {name}: step on {n} rays card vs CPU: loss rel {loss_rel:.3e} (bound "
+          f"{NERF_LOSS_BOUND:g}); gradients relative L2 max {rel[worst]:.3e} at {worst} "
+          f"(bound {NERF_GRAD_BOUND:g}) over {len(rel)} tensors; ReLU decisions replayed: "
+          f"{decisions.flips} of {decisions.elements} differed on the CPU")
+    if not (loss_rel <= NERF_LOSS_BOUND and rel[worst] <= NERF_GRAD_BOUND):
+        raise AssertionError(f"{path} {name}: card step disagrees with the CPU")
+    return {"loss_rel": loss_rel, "grad_rel_l2_max": rel[worst], "grad_rel_l2_at": worst,
+            "relu_flips": decisions.flips, "relu_elements": decisions.elements,
+            "grad_rel_l2_median": float(np.median(list(rel.values())))}
+
+
+def nerf_steps(task, n_steps: int, out_dir: str, path: str, name: str) -> dict:
+    """``n_steps`` of ``train_step`` on the task's batches: ms/step (host
+    clock to a synchronize), the losses, the attention switch; then one
+    step profiled and one step held against the CPU."""
+    import numpy as np
+    import torch
+
+    batches = task.train_batches(0)
+    times, losses, att = [], [], []
+    for _ in range(n_steps):
+        batch = next(batches)
+        att.append(task.with_att())
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        step = task.train_step(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - ts) * 1e3)
+        losses.append({k: float(v) for k, v in step.items()})
+        groups = {g["name"]: any(p.grad is not None and bool(p.grad.abs().sum() > 0)
+                                 for p in g["params"]) for g in task.optimizer.param_groups}
+        if not all(np.isfinite(list(losses[-1].values()))):
+            raise AssertionError(f"{path} {name}: non-finite losses {losses[-1]}")
+        if not groups["net"] or groups.get("att", False) != att[-1]:
+            raise AssertionError(f"{path} {name}: gradients by group {groups}, attention "
+                                 f"{att[-1]}")
+    median = float(np.median(times[2:]))
+    batch = next(batches)
+    prof = nerf_profile(lambda: task.train_step(batch), out_dir, f"{path}_{name}_step", median)
+    check = nerf_step_vs_cpu(task, next(batches), path, name)
+    rays = int(task.cfg["n_rays"])
+    print(f"{path} {name}: median ms/step {median:.3f} over steps 2-{n_steps - 1} "
+          f"({rays / median * 1e3:.0f} rays/s); steps ms {[round(t, 3) for t in times]}; "
+          f"attention by step {att}; device busy {fmt_ms(prof['device_busy_ms'], ' ms')}, "
+          f"idle share {fmt_ms(prof['idle_share'])}; first and last losses "
+          f"{json.dumps(losses[0])} {json.dumps(losses[-1])}")
+    return {"ms_per_step": median, "steps_ms": times, "rays_per_s": rays / median * 1e3,
+            "attention": att, "losses": [losses[0], losses[-1]], "profile": prof,
+            "step_vs_cpu": check}
+
+
+def nerf_train_phase(cfg, out_dir: str, path: str = "nerf_train") -> tuple:
+    """Vanilla NeRF training: ``Lm3dNeRFTask`` steps at 1,600 rays (the
+    warm start to step ``NERF_NO_SMO``, then the attention), its checkpoint
+    as the torso's head, ``Lm3dNeRFTorsoTask`` steps on it with the head
+    bit-identical afterwards → (record, launches, sites)."""
+    import torch
+
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.lm3d_nerf import Lm3dNeRFTask, Lm3dNeRFTorsoTask
+    from geneface_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = os.path.dirname(cfg["work_dir"])
+    head_cfg = dict(nerf_cfg(cfg), work_dir=os.path.join(root, "nerf_train_head"),
+                    no_smo_iterations=NERF_NO_SMO)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    head = Lm3dNeRFTask(head_cfg)
+    head.build()
+    record = {"head": nerf_steps(head, NERF_HEAD_STEPS, out_dir, path, "head")}
+    save_checkpoint(os.path.join(head_cfg["work_dir"], f"model_ckpt_steps_{head._step}.ckpt"),
+                    head.checkpoint_payload(head._step))
+    torso_cfg = dict(nerf_cfg(cfg, torso=True), work_dir=os.path.join(root, "nerf_train_torso"),
+                     head_model_dir=head_cfg["work_dir"])
+    torso = Lm3dNeRFTorsoTask(torso_cfg)
+    torso.build()
+    frozen = {k: v.clone() for k, v in torso.model.state_dict().items()}
+    for k, v in head.model.state_dict().items():
+        if not torch.equal(frozen[k], v):
+            raise AssertionError(f"{path}: the torso's head differs from the trained head at {k}")
+    record["torso"] = nerf_steps(torso, NERF_TORSO_STEPS, out_dir, path, "torso")
+    for k, v in torso.model.state_dict().items():
+        if not torch.equal(frozen[k], v):
+            raise AssertionError(f"{path}: the frozen head moved at {k}")
+    launches = dict(LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{path}: the vanilla tasks launched {launches}")
+    record["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    print(f"{path}: launches {json.dumps(launches)} (the vanilla path runs neither kernel); "
+          "the frozen head bit-identical after the torso steps; peak device memory "
+          f"{record['peak_memory_gb']:.3f} GB")
+    return record, launches, {}
+
+
 def main() -> int:
     import torch
 
@@ -2900,7 +3307,9 @@ def main() -> int:
                   ("train_lip", train_lip_phase, cfg),
                   ("import_serve", import_serve_phase, import_cfg(cfg)),
                   ("import_train", import_train_phase, import_cfg(cfg)),
-                  ("datagen", datagen_phase, cfg)]
+                  ("datagen", datagen_phase, cfg),
+                  ("nerf_serve", nerf_serve_phase, cfg),
+                  ("nerf_train", nerf_train_phase, cfg)]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

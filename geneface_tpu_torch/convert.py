@@ -43,6 +43,22 @@ names. :func:`flax_param_tree` and :func:`param_values_from_flax` map any
 per-parameter tensors of such a model (the optimizers' moments) to and from
 the same layout.
 
+The vanilla NeRF family (:mod:`geneface_tpu_torch.models.nerf`):
+:func:`nerf_flax_to_state_dict` and :func:`nerf_state_dict_to_flax` map the
+flax tree both ways, :func:`nerf_flax_path` names one entry's flax path:
+
+- ``model_{coarse,fine}/Dense_<i>`` (``Dense_8`` is sigma, ``Dense_12``
+  rgb) ↔ ``model_{coarse,fine}.layers.<i>``;
+- the window reducers ``lm_encoder``/``aud_net``: ``Conv1dK3_<j>`` ↔
+  ``convs.<j>`` (kernel ``[3, Cin, Cout]`` ↔ weight ``[Cout, Cin, 3]``),
+  ``Dense_0/1`` ↔ ``fc1``/``fc2``; the attention nets
+  ``lmatt_encoder``/``audatt_net``: ``Conv1dK3_<j>`` and ``Dense_0`` ↔
+  ``fc``;
+- the MLP lists ``lm_encoder_mlp_<i>`` and ``color_encoder_<i>`` ↔
+  ``lm_encoder_mlp.<i>`` and ``color_encoder.<i>``;
+
+every ``Dense`` with its bias, kernel ``[in, out]`` ↔ weight ``[out, in]``.
+
 LPIPS (:mod:`geneface_tpu_torch.models.lpips`): :func:`lpips_state_dict` and
 :func:`lpips_flax_params` map the flax tree ``alex/conv{i}/{kernel,bias}``
 (kernel HWIO) and ``lin{i}`` ↔ ``alex.conv{i}.{weight,bias}`` (weight
@@ -68,6 +84,9 @@ __all__ = [
     "lpips_state_dict",
     "lpips_flax_params",
     "load_flax_npz",
+    "nerf_flax_path",
+    "nerf_flax_to_state_dict",
+    "nerf_state_dict_to_flax",
 ]
 
 _AUDIO_DENSE = {
@@ -327,3 +346,74 @@ def load_flax_npz(model: nn.Module, path: str) -> nn.Module:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return load_flax_variables(model, tree)
+
+
+_NERF_BACKBONES = ("model_coarse", "model_fine")
+_NERF_WINDOW_NETS = {"lm_encoder": ("fc1", "fc2"), "aud_net": ("fc1", "fc2"),
+                     "lmatt_encoder": ("fc",), "audatt_net": ("fc",)}
+_NERF_LISTS = ("lm_encoder_mlp", "color_encoder")
+
+
+def nerf_flax_path(name: str) -> tuple:
+    """The flax path (without the outer ``"params"``) of a vanilla NeRF
+    ``state_dict`` entry, e.g. ``"model_fine.layers.8.weight"`` →
+    ``("model_fine", "Dense_8", "kernel")``."""
+    parts = name.split(".")
+    top = parts[0]
+    leaf = "kernel" if parts[-1] == "weight" else "bias"
+    if top in _NERF_BACKBONES:
+        return (top, f"Dense_{parts[2]}", leaf)
+    if top in _NERF_LISTS:
+        return (f"{top}_{parts[1]}", leaf)
+    if top in _NERF_WINDOW_NETS:
+        if parts[1] == "convs":
+            return (top, f"Conv1dK3_{parts[2]}", leaf)
+        return (top, f"Dense_{_NERF_WINDOW_NETS[top].index(parts[1])}", leaf)
+    raise KeyError(f"unexpected state_dict entry {name}")
+
+
+def _nerf_name(path: tuple) -> str:
+    """Inverse of :func:`nerf_flax_path`."""
+    attr = "weight" if path[-1] == "kernel" else "bias"
+    top = path[0]
+    if top in _NERF_BACKBONES:
+        return f"{top}.layers.{path[1].split('_')[1]}.{attr}"
+    m = re.fullmatch(r"(\w+)_(\d+)", top)
+    if m and m.group(1) in _NERF_LISTS:
+        return f"{m.group(1)}.{m.group(2)}.{attr}"
+    if top in _NERF_WINDOW_NETS:
+        kind, j = path[1].rsplit("_", 1)
+        if kind == "Conv1dK3":
+            return f"{top}.convs.{j}.{attr}"
+        return f"{top}.{_NERF_WINDOW_NETS[top][int(j)]}.{attr}"
+    raise KeyError(f"unexpected parameter {'/'.join(path)}")
+
+
+def _kernel_layout(v: np.ndarray) -> np.ndarray:
+    """Dense ``[in, out]`` ↔ Linear ``[out, in]``; Conv1dK3 ``[3, Cin,
+    Cout]`` ↔ Conv1d ``[Cout, Cin, 3]`` (each its own inverse)."""
+    return v.transpose(2, 1, 0) if v.ndim == 3 else v.T
+
+
+def nerf_flax_to_state_dict(params: dict) -> dict:
+    """A vanilla NeRF flax tree (with or without the outer ``"params"``)
+    → ``{name: numpy array}`` for the model's ``load_state_dict``."""
+    sd = {}
+    for path, v in _flatten(params.get("params", params)).items():
+        sd[_nerf_name(path)] = _kernel_layout(v) if path[-1] == "kernel" else v
+    return {k: np.array(v, order="C") for k, v in sd.items()}
+
+
+def nerf_state_dict_to_flax(values: dict) -> dict:
+    """Inverse of :func:`nerf_flax_to_state_dict` (``{name: tensor or
+    array}``: the parameters, or tensors of their shapes such as Adam's
+    moments) → ``{"params": tree}`` of numpy leaves."""
+    tree: dict = {}
+    for name, t in values.items():
+        v = t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+        path = nerf_flax_path(name)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.array(_kernel_layout(v) if path[-1] == "kernel" else v, order="C")
+    return {"params": tree}

@@ -1,4 +1,5 @@
 from geneface_tpu_torch.inference.audio2motion_infer import Audio2MotionInfer
+from geneface_tpu_torch.inference.nerf_infer import ADNeRFInfer, LM3dNeRFInfer
 from geneface_tpu_torch.inference.postnet_infer import PostnetInfer
 from geneface_tpu_torch.inference.radnerf_infer import (
     RADNeRFInfer,
@@ -6,4 +7,5 @@ from geneface_tpu_torch.inference.radnerf_infer import (
     save_mp4,
 )
 
-__all__ = ["Audio2MotionInfer", "PostnetInfer", "RADNeRFInfer", "pick_ray_capacity", "save_mp4"]
+__all__ = ["ADNeRFInfer", "Audio2MotionInfer", "LM3dNeRFInfer", "PostnetInfer",
+           "RADNeRFInfer", "pick_ray_capacity", "save_mp4"]

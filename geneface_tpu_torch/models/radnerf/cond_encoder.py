@@ -137,7 +137,7 @@ class MLP(nn.Module):
     def forward(self, x):
         parts = list(x) if isinstance(x, (tuple, list)) else [x]
         for layer in self.layers[:-1]:
-            parts = [torch.relu(_split_linear(parts, layer.weight, self.dtype).to(self.dtype))]
+            parts = [F.relu(_split_linear(parts, layer.weight, self.dtype).to(self.dtype))]
         y = _split_linear(parts, self.layers[-1].weight, self.dtype)
         if self.split_out is None:
             return y.to(self.dtype).float()

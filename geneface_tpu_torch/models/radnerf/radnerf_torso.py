@@ -65,8 +65,10 @@ class RADNeRFTorso(RADNeRF):
         )
         self.torso_grid_meta = torso_meta
         self.torso_block_meta = make_block_grid_meta(torso_meta)
+        # the torso grid reads the screen coordinates of the batch's pixels,
+        # which fall evenly over its tables
         self.torso_fused_meta = make_fused_grid_meta(
-            torso_meta, row_lanes=head_kwargs.get("fused_row_lanes", 256)
+            torso_meta, row_lanes=head_kwargs.get("fused_row_lanes", 256), spread=True
         )
         self.torso_embeddings = self._grid_params(torso_meta, self.torso_fused_meta)
         if torso_individual_embedding_dim > 0:

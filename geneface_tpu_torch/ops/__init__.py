@@ -13,6 +13,14 @@ from geneface_tpu_torch.ops.encoders import (
     make_grid_meta,
     sh_encode,
 )
+from geneface_tpu_torch.ops.geometry import (
+    extract_fields,
+    extract_geometry,
+    linear_to_srgb,
+    marching_tetrahedra,
+    sph_from_ray,
+    srgb_to_linear,
+)
 from geneface_tpu_torch.ops.fused_grid import (
     FusedGridMeta,
     dense_view,
@@ -37,6 +45,7 @@ from geneface_tpu_torch.ops.scatter import (
     scatter_add_rows,
     scatter_add_rows_plain,
 )
+from geneface_tpu_torch.ops.volume import raw2outputs, render_rays, sample_pdf
 
 __all__ = [
     "trunc_exp",
@@ -50,6 +59,12 @@ __all__ = [
     "freq_encode_output_dim",
     "make_grid_meta",
     "sh_encode",
+    "extract_fields",
+    "extract_geometry",
+    "linear_to_srgb",
+    "marching_tetrahedra",
+    "sph_from_ray",
+    "srgb_to_linear",
     "FusedGridMeta",
     "dense_view",
     "fused_grid_encode",
@@ -68,4 +83,7 @@ __all__ = [
     "launch_scatter_add_rows",
     "scatter_add_rows",
     "scatter_add_rows_plain",
+    "raw2outputs",
+    "render_rays",
+    "sample_pdf",
 ]

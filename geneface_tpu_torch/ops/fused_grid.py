@@ -41,6 +41,7 @@ class FusedGridMeta(NamedTuple):
     n_rows: tuple  # rows of each group's (fast-view) table
     dense_sides: tuple  # per group: entries per axis of the dense level (0 if hash)
     dense_bsides: tuple  # per group: blocks per axis (0 if hash)
+    spread: bool = False  # the inputs fall evenly over the tables: K1 skips ``smem``
 
     @property
     def input_dim(self):
@@ -64,10 +65,13 @@ def make_fused_grid_meta(
     row_lanes: int = 256,
     ungroup_coarse: int = 0,
     coarse_run: int = 1,
+    spread: bool = False,
 ) -> FusedGridMeta:
     """Default grouping: level 0 alone, then ``ungroup_coarse`` levels in
     runs of ``coarse_run``, then the rest in runs of ``row_lanes // (K*C)``
-    levels. The grouping fixes the checkpoint's table shapes."""
+    levels. The grouping fixes the checkpoint's table shapes. ``spread``:
+    the grid's inputs fall evenly over its tables, which the backward's row
+    scatter-adds pass to K1's dispatcher."""
     D = meta.input_dim
     K = 1 << D
     C = meta.level_dim
@@ -107,6 +111,7 @@ def make_fused_grid_meta(
         n_rows=tuple(n_rows),
         dense_sides=tuple(sides),
         dense_bsides=tuple(bsides),
+        spread=bool(spread),
     )
 
 
@@ -258,7 +263,8 @@ class _FusedGridEncode(torch.autograd.Function):
             w_ax, chain = _axis_weights(comps, meta, g, K)
             if ctx.needs_input_grad[2 + D + gi]:
                 upd = (_prod(w_ax)[..., None] * gg).reshape(M, G * K * C)
-                grad_tables[gi] = launch_scatter_add_rows(rows_idx[gi], upd, fmeta.n_rows[gi])
+                grad_tables[gi] = launch_scatter_add_rows(rows_idx[gi], upd, fmeta.n_rows[gi],
+                                                          spread=fmeta.spread)
             if not ctx.input_grad:
                 continue
             # d out / d comp_d = Σ_k rows · sign_d(k) · chain_d · Π_{d'≠d} w_d'

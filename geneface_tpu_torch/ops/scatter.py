@@ -19,7 +19,8 @@ only.
 
 K1 has five kernel variants (``VARIANTS``; the source's header says what
 bounds each). :func:`pick_scatter_variant` chooses one from the call's
-shape and alignment alone; every variant is right for every input it
+shape and alignment, and from the caller's word that its rows spread
+evenly over the table (``spread``: the torso grid's); every variant is right for every input it
 accepts, so the choice moves time, never the result beyond the order of
 float32 sums. ``launch_scatter_add_rows(..., variant="runs")`` forces one,
 for measurements and card tests; nothing on the model's path passes it.
@@ -131,7 +132,8 @@ def scatter_variant_accepts(
     raise ValueError(f"unknown scatter variant {variant!r}; one of {VARIANTS}")
 
 
-def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bool) -> str:
+def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bool,
+                         spread: bool = False) -> str:
     """The variant of ``csrc/scatter_add_rows.cu`` for a call's shape.
 
     - odd ``W``, unaligned updates or nothing to add: ``atomic``, which
@@ -142,7 +144,14 @@ def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bo
       small one — flushes the whole table once, so it pays only where the
       updates outnumber ``blocks * n_rows``; measured on the H100 at the
       lip step's ambient coarse group, ``[32768, 16]`` into 324 rows from
-      32 blocks, ``smem`` took 0.0099 ms and ``vec`` 0.0168);
+      32 blocks, ``smem`` took 0.0099 ms and ``vec`` 0.0168); not where the
+      caller says its rows are ``spread`` evenly over the table, where
+      ``vec``'s vector atomics rarely collide and ``smem``'s shared-memory
+      compare-and-swap loops cost more (the torso step's coarse group of
+      the torso grid, the same ``[65536, 16]`` into 324 rows per block
+      count: ``smem`` 0.0091–0.0092 ms, ``vec`` 0.0071–0.0085 over three
+      calls on the H100 80GB HBM3 at 700 W; the shape cannot tell the two
+      apart);
     - narrow rows (``W`` 2 or 6): ``runs``, which merges equal neighbouring
       rows in the warp and costs nothing where there are none;
     - rows of at least ``SORTED_MIN_WIDTH`` columns with at least
@@ -155,7 +164,7 @@ def pick_scatter_variant(M: int, W: int, n_rows: int, itemsize: int, aligned: bo
     """
     if not aligned or W % 2 or M == 0 or W == 0 or n_rows == 0:
         return "atomic"
-    if scatter_variant_accepts("smem", M, W, n_rows, itemsize, aligned):
+    if not spread and scatter_variant_accepts("smem", M, W, n_rows, itemsize, aligned):
         blocks = smem_plan(M, W, n_rows, 4 if W % 4 == 0 else 2, H100_SMS)[0]
         if M >= blocks * n_rows:
             return "smem"
@@ -202,12 +211,13 @@ def launch_scatter_add_rows(
     updates: torch.Tensor,  # [M, W] float32 / bfloat16 / float16
     n_rows: int,
     variant: str | None = None,
+    spread: bool = False,
 ) -> torch.Tensor:
     """``[n_rows, W]`` float32 row sums of ``updates`` grouped by ``rows``
     (not differentiable: see :func:`scatter_add_rows`).
 
     On the card the kernel variant is :func:`pick_scatter_variant`'s choice
-    for the shape; ``variant`` forces one (for measurements and tests; a
+    for the shape (and ``spread``); ``variant`` forces one (for measurements and tests; a
     variant that does not take the shape raises ``ValueError``). One call
     counts as one launch whatever the variant."""
     _check(rows, updates, n_rows)
@@ -216,7 +226,7 @@ def launch_scatter_add_rows(
     itemsize = updates.element_size()
     aligned = updates.data_ptr() % 16 == 0
     if variant is None:
-        variant = pick_scatter_variant(M, W, n_rows, itemsize, aligned)
+        variant = pick_scatter_variant(M, W, n_rows, itemsize, aligned, spread)
     elif not scatter_variant_accepts(variant, M, W, n_rows, itemsize, aligned):
         raise ValueError(
             f"scatter variant {variant!r} does not take updates [{M}, {W}] "

@@ -81,13 +81,15 @@ def torso_label_fn(path: str) -> str:
 
 
 def param_groups(model: torch.nn.Module, label_of_path: Callable[[str], str],
-                 multipliers: Mapping[str, float]) -> list:
+                 multipliers: Mapping[str, float],
+                 path_of: Callable[[str], tuple] = flax_path) -> list:
     """One param group per label (with its lr multiplier ``mult`` and the
     ``state_dict`` names of its parameters, ``param_names``), each parameter
-    labelled by its flax path ``params/...``."""
+    labelled by its flax path ``params/...`` (``path_of``: RAD-NeRF's by
+    default)."""
     groups = {name: ([], []) for name in multipliers}
     for name, p in model.named_parameters():
-        label = label_of_path("/".join(("params",) + flax_path(name)))
+        label = label_of_path("/".join(("params",) + path_of(name)))
         groups[label][0].append(p)
         groups[label][1].append(name)
     return [
@@ -106,13 +108,15 @@ class MultiGroupAdam(torch.optim.Optimizer):
     ``accumulate_grad_batches`` > 1 applies Adam to the mean of that many
     accepted micro-batches (optax ``MultiSteps``). ``layout``: the audio
     model whose flax layout (:func:`flax_param_tree`) the checkpointed
-    moments take; ``None`` is RAD-NeRF's (:func:`state_dict_to_flax`).
+    moments take, or a ``(to_flax, from_flax)`` pair of functions (the
+    vanilla NeRF's); ``None`` is RAD-NeRF's (:func:`state_dict_to_flax`).
     """
 
     def __init__(self, groups: list, schedule: Callable, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-15, clip_grad_norm: float = 0.0,
                  clip_grad_value: float = 0.0, guard_nan_grads: bool = True,
-                 accumulate_grad_batches: int = 1, layout: torch.nn.Module | None = None):
+                 accumulate_grad_batches: int = 1,
+                 layout: torch.nn.Module | tuple | None = None):
         super().__init__(groups, dict(mult=1.0))
         self.layout = layout
         self.schedule = schedule
@@ -200,11 +204,15 @@ class MultiGroupAdam(torch.optim.Optimizer):
     def _to_flax(self, values: dict) -> dict:
         if self.layout is None:
             return state_dict_to_flax(values)
+        if isinstance(self.layout, tuple):
+            return self.layout[0](values)
         return flax_param_tree(self.layout, values)
 
     def _from_flax(self, tree: dict) -> dict:
         if self.layout is None:
             return flax_to_state_dict(tree)
+        if isinstance(self.layout, tuple):
+            return self.layout[1](tree)
         return param_values_from_flax(self.layout, tree)
 
     def state_dict(self) -> dict:

@@ -1,6 +1,7 @@
 """Camera math (copies of ``geneface_tpu/utils/camera.py``): ngp pose
 conversion, 6-D pose vectors and their inverse (euler + translation → c2w,
-which datagen writes), background coordinates and pinhole rays on the host
+which datagen writes; c2w → euler + translation, the vanilla torso's pose
+condition), background coordinates and pinhole rays on the host
 (numpy), and the ray / background-coordinate rebuild of a training batch
 from its pixel indices on the device (torch)."""
 
@@ -14,6 +15,7 @@ __all__ = [
     "convert_poses",
     "euler_to_matrix",
     "euler_trans_to_c2w",
+    "c2w_to_euler_trans",
     "get_bg_coords",
     "get_rays",
     "get_rays_device",
@@ -79,6 +81,12 @@ def euler_trans_to_c2w(euler: np.ndarray, trans: np.ndarray) -> np.ndarray:
     out[:, :3, :3] = euler_to_matrix(euler)
     out[:, :3, 3] = trans
     return out
+
+
+def c2w_to_euler_trans(c2w: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """[B, 4, 4] → (intrinsic-XYZ euler [B, 3], translation [B, 3])."""
+    c2w = np.asarray(c2w, np.float32)
+    return _matrix_to_euler(c2w[:, :3, :3]), c2w[:, :3, 3]
 
 
 def get_bg_coords(H: int, W: int) -> np.ndarray:

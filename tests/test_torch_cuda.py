@@ -19,7 +19,8 @@ encoders of the import layout are held so too); a float32 frame (head, or
 head+torso) on the card vs the CPU — 1e-5 absolute per pixel; the datagen
 splat's weights and colours (K1 sums in another order) and its gradients
 (K8 adjoint) 1e-5 of max, the datagen networks' outputs 1e-5 of max |CPU|
-(TF32 off).
+(TF32 off); the vanilla NeRF's render (the CPU on the card's importance
+samples) 1e-5 absolute per pixel, its gradients 1e-4 relative L2.
 """
 
 import os
@@ -490,3 +491,43 @@ def test_landmark_fit_on_card_picks_the_cpu_focal(card):
     want = fit_sequence(lms, basis, 512, 512, device="cpu", **kw)
     assert got["focal"] == want["focal"] == 700.0
     np.testing.assert_allclose(got["trans"], want["trans"], rtol=1e-3, atol=1e-4)
+
+
+def test_vanilla_render_on_card_matches_cpu(card):
+    """The vanilla coarse+fine render of a small ``Lm3dNeRF`` on the card,
+    jittered, against the CPU on the card's importance samples: pixels
+    within 1e-5 absolute, and the field's gradient within 1e-4 relative L2
+    (TF32 off)."""
+    from geneface_tpu_torch import set_full_fp32
+    from geneface_tpu_torch.models.nerf import Lm3dNeRF
+    from geneface_tpu_torch.ops.volume import render_rays
+
+    set_full_fp32()
+    rng = np.random.RandomState(0)
+    N = 512
+    o = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (N, 1))
+    d = np.stack([rng.randn(N) * 0.2, rng.randn(N) * 0.2, -np.ones(N)], -1).astype(np.float32)
+    bg = rng.rand(N, 3).astype(np.float32)
+    t_rand, u = rng.rand(N, 16).astype(np.float32), rng.rand(N, 32).astype(np.float32)
+    cond = rng.randn(5, 1, 204).astype(np.float32)
+    cpu = Lm3dNeRF(204, cond_dim=32, hidden_size=64)
+    cpu.reset_parameters(torch.Generator().manual_seed(0))
+    gpu = Lm3dNeRF(204, cond_dim=32, hidden_size=64).to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    outs, grads = [], []
+    for model, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+        t = {k: torch.as_tensor(v, device=dev) for k, v in
+             dict(o=o, d=d, bg=bg, t_rand=t_rand, u=u, cond=cond).items()}
+        feat = model.cal_cond_feat(t["cond"], True)
+        vd = t["d"] / torch.linalg.norm(t["d"], dim=-1, keepdim=True)
+        out = render_rays(lambda p, fine: model(p, feat, vd, fine), t["o"], t["d"], 0.3, 0.9,
+                          t["bg"], 16, 32, t_rand=t["t_rand"], u=t["u"],
+                          z_samples=outs[0]["z_samples"].to(dev) if outs else None)
+        (out["rgb_map"].sum() + out["rgb_map_coarse"].sum()).backward()
+        outs.append(out)
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters()})
+    np.testing.assert_allclose(outs[0]["rgb_map"].detach().cpu().numpy(),
+                               outs[1]["rgb_map"].detach().numpy(), atol=1e-5, rtol=0)
+    for n, g in grads[1].items():
+        err = float(torch.linalg.norm(grads[0][n] - g) / torch.linalg.norm(g).clamp_min(1e-30))
+        assert err < 1e-4, (n, err)

@@ -74,6 +74,18 @@ def test_walk_covers_datagen():
         assert f"geneface_tpu_torch.datagen.{name}" in mods, name
 
 
+def test_walk_covers_vanilla_nerf():
+    """The vanilla NeRF modules, every one that ``chip_smoke.py``'s
+    ``nerf_serve`` and ``nerf_train`` import inside their functions, are
+    among those imported above."""
+    mods = set(_port_modules())
+    for name in ("ops.volume", "ops.geometry", "models.nerf.backbone", "models.nerf.models",
+                 "data.nerf_dataset", "data.ray_samplers", "tasks.lm3d_nerf",
+                 "inference.nerf_infer", "inference.landmark_postprocess", "config.config",
+                 "models.radnerf.cond_encoder", "utils.checkpoint", "kernels"):
+        assert f"geneface_tpu_torch.{name}" in mods, name
+
+
 def test_datagen_path_runs_without_opencv_or_pillow(tmp_path):
     """The card's host has neither OpenCV nor Pillow: with both made
     unimportable, the datagen path from frames in memory to the store runs

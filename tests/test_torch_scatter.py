@@ -156,7 +156,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(rows, upd, err):
         (1081344, 6, 135168, "runs"),  # serving composite, ray-major rows
         (655360, 6, 65536, "runs"),  # training composite
         (135168, 6, 262144, "runs"),  # frame scatter, unique rows
-        (65536, 16, 324, "smem"),  # torso grid backward, coarse group
+        (65536, 16, 324, "smem"),  # that shape where the rows pile up (see the spread test)
         (65536, 112, 5466, "vec"),  # torso grid backward, fine group: no sort
         (32768, 16, 324, "smem"),  # lip step (4,096 rays), ambient coarse group
         (32768, 112, 5466, "vec"),  # lip step, ambient fine group
@@ -172,6 +172,20 @@ def test_variant_of_the_main_path_shapes(M, W, n_rows, want):
     assert scatter_variant_accepts(want, M, W, n_rows, 4, True)
     # 16-bit updates take the same kernels (widened in registers)
     assert pick_scatter_variant(M, W, n_rows, 2, True) == want
+
+
+@pytest.mark.parametrize(
+    "M,W,n_rows,want",
+    [
+        (65536, 16, 324, "vec"),  # torso grid backward, coarse group
+        (65536, 112, 5466, "vec"),  # torso grid backward, fine group
+        (655360, 224, 4096, "sorted"),  # spread or not, a wide call still sorts
+    ],
+)
+def test_spread_rows_skip_smem(M, W, n_rows, want):
+    """A caller whose rows spread evenly over the table (the torso grid)
+    never gets ``smem``; the other rules stand."""
+    assert pick_scatter_variant(M, W, n_rows, 4, True, spread=True) == want
 
 
 @pytest.mark.parametrize(

@@ -48,6 +48,7 @@ from geneface_tpu_torch.ops import (
     march_rays_train,
     near_far_from_aabb,
 )
+from geneface_tpu_torch.ops.scatter import pick_scatter_variant
 from geneface_tpu_torch.utils.checkpoint import restore_partial
 
 # one intra-op thread: the suite runs in parallel workers, where torch's
@@ -115,6 +116,18 @@ def test_forward_torso_matches(torso_pair):
     # the torso grid keeps its own full-width geometry in a tiny head config
     shapes = [tuple(t.shape) for t in model.torso_grid_tables()]
     assert shapes == [(324, 16), (5466, 112)]
+
+
+def test_torso_grid_tells_the_dispatcher_its_rows_spread():
+    """The torso grid's inputs are the batch's pixels, spread evenly: its
+    backward scatter-adds skip K1's ``smem`` (the head's grids keep it)."""
+    model = model_from_cfg(CFG, torso=True, dtype=torch.float32)
+    assert model.torso_fused_meta.spread
+    assert not model.pos_fused_meta.spread and not model.ambient_fused_meta.spread
+    rows, W = model.torso_fused_meta.n_rows[0], model.torso_fused_meta.group_width(0)
+    assert pick_scatter_variant(65536, W, rows, 4, True) == "smem"
+    assert pick_scatter_variant(65536, W, rows, 4, True,
+                                spread=model.torso_fused_meta.spread) == "vec"
 
 
 def test_conversion_round_trip_of_a_jax_torso_tree(torso_pair):

@@ -304,6 +304,6 @@ def test_run_cli_trains_and_checkpoint_renders(synth_dir, tmp_path):
     # an unported task raises, and so does the lip phase without LPIPS
     # weights (the JAX guard's error)
     with pytest.raises(NotImplementedError):
-        resolve_task("geneface_tpu.tasks.lm3d_nerf.Lm3dNeRFTask")
+        resolve_task("geneface_tpu.tasks.audio2pose.Audio2PoseTask")
     with pytest.raises(ValueError, match="no LPIPS weights are configured"):
         RADNeRFTask(dict(cfg, finetune_lips=True), device="cpu").build()
