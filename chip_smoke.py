@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's twelve paths at the full width of
+Drives the port's fourteen paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -98,7 +98,25 @@ and of the vanilla NeRF (``egs/egs_bases/nerf/lm3d_nerf.yaml``,
   steps on that head, the head bit-identical afterwards; ms/step, rays/s,
   the idle share, and one step of each on 256 rays held against the CPU on
   the card's draws, fine samples and ReLU decisions. Neither path launches
-  K1 or K8, and the script checks that too.
+  K1 or K8, and the script checks that too;
+- the ASR conditions (``asr``): the seeded 8 s wav through the MFCC rows
+  (host), DeepSpeech v0.1.0 at full width (494 → 2048 → 2048 → 2048, an
+  LSTM kernel ``[4096, 8192]``, 2048 → 29; a GraphDef ``.pb`` of 180 MiB
+  the script authors) with ``extract_deepspeech_features`` → ``[200, 16,
+  29]``, the esperanto wav2vec2 at xlsr-large's widths (a converted
+  checkpoint, vocab 44) with ``extract_esperanto_features`` → ``[200, 16,
+  44]``, and ``StreamingASR`` over the wav (context 12, strides 4/4), each
+  held against the CPU; the forward's device time, the ``gf::deepspeech``
+  and LSTM spans and the LSTM's bound; then the DeepSpeech windows as a
+  ``.npy`` drive ``ADNeRFInfer.run`` of a seeded ``adnerf.yaml`` head to 2
+  frames at 512² with the mp4;
+- audio2pose (``pose``): a store of 16 + 4 clips of 250–400 frames the
+  script writes, ``Trainer.fit`` of ``Audio2PoseTask`` for 8 steps with a
+  validation under ``May/audio2pose.yaml``'s keys (``audio_in_dim`` 58),
+  one step held against the CPU on the card's LeakyReLU decisions, then
+  ``Audio2PoseInfer.infer`` of the ``asr`` path's windows → c2w ``[200,
+  4, 4]`` held against the CPU, with ms per rolled frame and launches per
+  frame. Neither path launches K1 or K8, and the script checks that.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
 together), sets the launch counts to 0 before each path and checks after it
@@ -119,7 +137,7 @@ and the idle share of a frame and of a step of each path
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call; a reference or block grid
 site is named by grid, level and backend), and one ``{"kernels": [...]}``
-JSON line listing every site of the twelve paths.
+JSON line listing every site of the fourteen paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -172,6 +190,8 @@ PEAK_F32_OPS_S = 67e12
 #: profiler windows per measurement before it gives up (see :func:`profiled`),
 #: and the run's count of windows, misses and times taken by CUDA events
 PROFILER_TRIES = 5
+#: the card's name and power limit as nvidia-smi prints them (set by main)
+CARD = ""
 PROFILER = {"windows": 0, "windows_without_device_time": 0, "windows_missing_launches": 0,
             "estimated_from_partial_windows": 0, "timed_by_events": 0,
             "short_rows": {}, "opening_records": {}}
@@ -287,6 +307,20 @@ def build_kernels() -> str:
     for n in names:
         kernels.load_kernel(n)
     return "\n".join(log)
+
+
+def host_ms(fn, n: int = 5) -> float:
+    """Median host-clock ms of ``fn()`` to a synchronize, over ``n`` runs."""
+    import torch
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - ts) * 1e3)
+    return sorted(out)[n // 2]
 
 
 def events_ms(fn, iters: int = 20) -> float:
@@ -1082,18 +1116,9 @@ def audio_serve_phase(cfg, out_dir: str, path: str = "audio_serve") -> tuple:
           f"ms/frame {(t3 - t2) / RENDER_FRAMES * 1e3:.3f} (render_frames of {RENDER_FRAMES}, "
           f"LLE and per-video set-up included)")
 
-    # the stages one by one: host clock for the host ops, CUDA events for
-    # the device ones (each a mean over back-to-back runs after a warm-up)
-    def host_ms(fn, n=5):
-        out = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            ts = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            out.append((time.perf_counter() - ts) * 1e3)
-        return sorted(out)[n // 2]
-
+    # the stages one by one: host clock for the host ops (host_ms), CUDA
+    # events for the device ones (each a mean over back-to-back runs after a
+    # warm-up)
     stages = {"wav_read_ms": host_ms(lambda: load_wav16k(files["wav"])),
               "f0_ms": host_ms(lambda: extract_f0(wav), n=3),
               "hubert_load_ms": host_ms(lambda: load_hubert(files["hubert"], "cuda"), n=1)}
@@ -2989,9 +3014,10 @@ def write_nerf_checkpoints(cfg: dict) -> None:
 
 
 def nerf_profile(run, out_dir: str, name: str, wall_ms: float) -> dict:
-    """Device time of ``run()`` by kernel and the ``gf::`` spans (the
-    backbone products, ``freq_encode``, the composite, ``sample_pdf`` with
-    its sort), from ``torch.profiler``; the table goes to
+    """Device time of ``run()`` by kernel, its launches and the ``gf::``
+    spans (the vanilla NeRF's backbone products, ``freq_encode``, the
+    composite, ``sample_pdf`` with its sort; the ASR and audio2pose spans),
+    from ``torch.profiler``; the table goes to
     ``out_dir/<name>_profile.txt``."""
     from torch.profiler import ProfilerActivity
 
@@ -3007,6 +3033,7 @@ def nerf_profile(run, out_dir: str, name: str, wall_ms: float) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy,
             "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall_ms),
             "stages_ms": stages, "gemm_kernels_ms": gemm if kernels else None,
+            "launches": sum(k[2] for k in kernels) if kernels else None,
             "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
 
 
@@ -3268,6 +3295,510 @@ def nerf_train_phase(cfg, out_dir: str, path: str = "nerf_train") -> tuple:
     return record, launches, {}
 
 
+#: the asr path: the shipped DeepSpeech v0.1.0 widths (494 → 2048 → 2048 →
+#: 2048, an LSTM cell of 2048, 2048 → 29), authored as a GraphDef ``.pb``;
+#: the esperanto wav2vec2 at ``Wav2Vec2Config``'s defaults (xlsr-large, 24 ×
+#: 1024, vocab 44); the video's ADNeRF head at ``adnerf.yaml``'s widths
+ADNERF_YAML = "egs/egs_bases/nerf/adnerf.yaml"
+DS_WIDTHS = (494, 2048, 2048, 29)
+ASR_FRAMES = 200  # 8 s at 25 fps
+ASR_VIDEO_FRAMES = 2
+#: card vs CPU bounds, relative to max |CPU|: the DeepSpeech logits (an
+#: LSTM over 400 frames carries the products' other summation order), the
+#: wav2vec2 logits (24 layers, as HuBERT-large's 1e-5 in audio_serve)
+DS_BOUND = 1e-5
+W2V_BOUND = 1e-5
+
+
+def _pb_varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_field(field: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _pb_varint((field << 3) | 2) + _pb_varint(len(payload)) + payload
+
+
+def write_graph_pb(path: str, consts: list) -> int:
+    """A GraphDef of ``Const`` nodes ``[(name, float32 array), ...]``, in the
+    protobuf wire format a frozen TF graph has (NodeDef ``name``/``op``/
+    ``attr["value"]`` → TensorProto dtype 1, shape, ``tensor_content``),
+    plus the input placeholder → bytes written."""
+    with open(path, "wb") as f:
+        n = f.write(_pb_field(1, _pb_field(1, b"input_node") + _pb_field(2, b"Placeholder")))
+        for name, arr in consts:
+            shape = b"".join(_pb_field(2, _pb_varint(1 << 3) + _pb_varint(int(s)))
+                             for s in arr.shape)
+            tensor = (_pb_varint(1 << 3) + _pb_varint(1) + _pb_field(2, shape)
+                      + _pb_field(4, arr.astype("<f4").tobytes()))
+            attr = _pb_field(1, b"value") + _pb_field(2, _pb_field(8, tensor))
+            node = _pb_field(1, name.encode()) + _pb_field(2, b"Const") + _pb_field(5, attr)
+            n += f.write(_pb_field(1, node))
+    return n
+
+
+def write_deepspeech_pb(path: str, seed: int = 0) -> dict:
+    """DeepSpeech v0.1.0 at full width from a seeded generator, under
+    Mozilla's names (``h1``/``b1`` … ``h6``/``b6``, the LSTM's kernel and
+    bias), weights uniform in ±1/sqrt(fan_in) → the param dict."""
+    import numpy as np
+    import torch
+
+    n_in, hid, cell, n_cls = DS_WIDTHS
+    gen = torch.Generator().manual_seed(seed)
+    shapes = {"h1": (n_in, hid), "h2": (hid, hid), "h3": (hid, hid),
+              "lstm_kernel": (hid + cell, 4 * cell), "h5": (cell, hid), "h6": (hid, n_cls)}
+    params = {}
+    for k, (fan_in, fan_out) in shapes.items():
+        bound = 1.0 / np.sqrt(fan_in)
+        bias = "lstm_bias" if k == "lstm_kernel" else "b" + k[1]
+        params[k] = ((torch.rand(fan_in, fan_out, generator=gen) * 2 - 1) * bound).numpy()
+        params[bias] = ((torch.rand(fan_out, generator=gen) * 2 - 1) * bound).numpy()
+    order = ("h1", "b1", "h2", "b2", "h3", "b3", "lstm_kernel", "lstm_bias", "h5", "b5",
+             "h6", "b6")
+    names = {"lstm_kernel": "lstm/basic_lstm_cell/kernel", "lstm_bias": "lstm/basic_lstm_cell/bias"}
+    write_graph_pb(path, [(names.get(k, k), params[k]) for k in order])
+    return params
+
+
+def adnerf_cfg(cfg: dict) -> dict:
+    """The ADNeRF head of ``adnerf.yaml`` on the scene's data, its seeded
+    checkpoint's work dir."""
+    from geneface_tpu_torch.config.config import load_config
+
+    out = dict(load_config(os.path.join(REPO, ADNERF_YAML)))
+    out.update(data_dir=cfg["data_dir"], seed=0,
+               work_dir=os.path.join(os.path.dirname(cfg["work_dir"]), "adnerf_head"))
+    return out
+
+
+def write_adnerf_checkpoint(acfg: dict) -> None:
+    """A seeded ``ADNeRF`` head at the config's widths, sigma biases at 3
+    (a translucent field), as a JAX-layout checkpoint."""
+    import torch
+
+    from geneface_tpu_torch.convert import nerf_state_dict_to_flax
+    from geneface_tpu_torch.tasks.lm3d_nerf import ADNeRFTask
+    from geneface_tpu_torch.utils.checkpoint import save_checkpoint
+
+    model = ADNeRFTask(acfg, device="cpu").make_model()
+    model.reset_parameters(torch.Generator().manual_seed(12))
+    with torch.no_grad():
+        for net in (model.model_coarse, model.model_fine):
+            net.layers[net.num_density_linears].bias.fill_(3.0)
+    save_checkpoint(os.path.join(acfg["work_dir"], "model_ckpt_steps_0.ckpt"),
+                    {"state": {"params": nerf_state_dict_to_flax(model.state_dict())},
+                     "step": 0})
+
+
+def asr_phase(cfg, out_dir: str, path: str = "asr") -> tuple:
+    """The ASR conditions from a wav: the MFCC rows (host), DeepSpeech v0.1.0
+    at full width from an authored ``.pb`` (``extract_deepspeech_features``
+    → ``[200, 16, 29]``), the esperanto wav2vec2 at xlsr-large's widths
+    (``extract_esperanto_features`` → ``[200, 16, 44]``) and
+    ``StreamingASR`` on the same wav (context 12, strides 4/4); each held
+    against the port's CPU path; then the DeepSpeech windows as a ``.npy``
+    drive ``ADNeRFInfer.run`` to 2 frames at 512² with the mp4 →
+    (record, launches, sites)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.convert import flax_variables
+    from geneface_tpu_torch.datagen._ds_audio import audio_to_mfcc_windows
+    from geneface_tpu_torch.datagen.asr_features import (
+        extract_deepspeech_features,
+        extract_esperanto_features,
+        load_esperanto,
+    )
+    from geneface_tpu_torch.datagen.deepspeech import load_deepspeech
+    from geneface_tpu_torch.datagen.streaming_asr import StreamingASR
+    from geneface_tpu_torch.datagen.wav2vec2 import Wav2Vec2Config, Wav2Vec2CTC
+    from geneface_tpu_torch.inference.nerf_infer import ADNeRFInfer
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.models.layers import init_weights_
+    from geneface_tpu_torch.utils.audio import load_wav16k
+    from geneface_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = os.path.join(os.path.dirname(cfg["work_dir"]), "asr")
+    os.makedirs(root, exist_ok=True)
+    clock = [time.perf_counter()]
+    wav_path, pb = os.path.join(root, "speech.wav"), os.path.join(root, "output_graph.pb")
+    write_voiced_wav(wav_path, AUDIO_SECONDS)
+    write_deepspeech_pb(pb)
+    w2v_cfg = Wav2Vec2Config()  # xlsr-large, vocab 44
+    w2v_cpu = init_weights_(Wav2Vec2CTC(w2v_cfg), torch.Generator().manual_seed(5)).eval()
+    ckpt = os.path.join(root, "esperanto.pkl")
+    save_checkpoint(ckpt, {"config": dataclasses.asdict(w2v_cfg),
+                           "params": flax_variables(w2v_cpu)})
+    clock.append(time.perf_counter())
+    print(f"{path}: wav, DeepSpeech .pb ({os.path.getsize(pb) / 2**20:.1f} MiB) and esperanto "
+          f"checkpoint ({os.path.getsize(ckpt) / 2**20:.0f} MiB) written in "
+          f"{clock[-1] - clock[-2]:.1f} s")
+
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    wav = load_wav16k(wav_path)
+    # DeepSpeech: the MFCC rows on the host, the net on the card
+    mfcc_ms = host_ms(lambda: audio_to_mfcc_windows(wav), n=3)
+    feats, n_rows = audio_to_mfcc_windows(wav)
+    t0 = time.perf_counter()
+    net = load_deepspeech(pb, "cuda")
+    load_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ds_wins = extract_deepspeech_features(wav, n_frames=ASR_FRAMES, net=net)
+    torch.cuda.synchronize()
+    extract_ms = (time.perf_counter() - t0) * 1e3
+    if ds_wins.shape != (ASR_FRAMES, 16, 29) or not np.isfinite(ds_wins).all():
+        raise AssertionError(f"{path}: DeepSpeech windows {ds_wins.shape}")
+    x = torch.from_numpy(feats).cuda()
+
+    def ds_forward():
+        with torch.inference_mode():
+            net(x)
+
+    ds_wall = host_ms(ds_forward, n=3)
+    ds_prof = nerf_profile(ds_forward, out_dir, f"{path}_deepspeech", ds_wall)
+    n_in, hid, cell, n_cls = DS_WIDTHS
+    lstm_bytes = (hid + cell) * 4 * cell * 4
+    lstm_bound = lstm_bytes * n_rows / PEAK_BYTES_S * 1e3
+    dense_bytes = 4 * (n_in * hid + 2 * hid * hid + cell * hid + hid * n_cls)
+    forward_bound = lstm_bound + dense_bytes / PEAK_BYTES_S * 1e3
+    with torch.inference_mode():
+        card = net(x).cpu().numpy()
+        net_cpu = load_deepspeech(pb, "cpu")
+        ref = net_cpu(torch.from_numpy(feats)).numpy()
+    errs = {"deepspeech_logits": held("DeepSpeech logits (400 LSTM steps)", card, ref,
+                                      DS_BOUND, path=path)}
+    ref_wins = extract_deepspeech_features(wav, n_frames=ASR_FRAMES, net=net_cpu)
+    errs["deepspeech_windows"] = held("deepspeech_win", ds_wins, ref_wins, DS_BOUND, path=path)
+    del net_cpu
+    lstm_span = ds_prof["stages_ms"].get("gf::deepspeech_lstm")
+    print(f"{path}: {CARD}: DeepSpeech at {DS_WIDTHS}: {len(wav)} samples → {n_rows} MFCC rows "
+          f"(host {mfcc_ms:.3f} ms) → logits {card.shape} → windows {ds_wins.shape}; graph "
+          f"read {load_ms:.1f} ms; extract {extract_ms:.3f} ms wall; forward {ds_wall:.3f} ms "
+          f"wall, device busy {fmt_ms(ds_prof['device_busy_ms'], ' ms')}, idle share "
+          f"{fmt_ms(ds_prof['idle_share'])}, {ds_prof['launches']} launches; spans ms "
+          + json.dumps({k: round(v, 3) for k, v in ds_prof["stages_ms"].items()})
+          + f"; LSTM bound {lstm_bound:.3f} ms ({lstm_bytes / 1e6:.1f} MB kernel read once per "
+          f"step × {n_rows} steps at {PEAK_BYTES_S / 1e12:.2f} TB/s), forward bound "
+          f"{forward_bound:.3f} ms (bytes); LSTM span / bound "
+          f"{fmt_ms(None if lstm_span is None else lstm_span / lstm_bound)}")
+
+    # esperanto: the checkpoint read onto the card; the CPU check on the
+    # model that wrote it
+    t0 = time.perf_counter()
+    w2v = load_esperanto(ckpt, "cuda")
+    w2v_load_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eo_wins = extract_esperanto_features(wav, n_frames=ASR_FRAMES, model=w2v)
+    torch.cuda.synchronize()
+    eo_ms = (time.perf_counter() - t0) * 1e3
+    if eo_wins.shape != (ASR_FRAMES, 16, 44) or not np.isfinite(eo_wins).all():
+        raise AssertionError(f"{path}: esperanto windows {eo_wins.shape}")
+    eo_ref = extract_esperanto_features(wav, n_frames=ASR_FRAMES, model=w2v_cpu)
+    errs["esperanto_windows"] = held("esperanto_win", eo_wins, eo_ref, W2V_BOUND, path=path)
+    eo_wall = host_ms(lambda: extract_esperanto_features(wav, model=w2v), n=3)
+    eo_prof = nerf_profile(lambda: extract_esperanto_features(wav, model=w2v), out_dir,
+                           f"{path}_esperanto", eo_wall)
+    print(f"{path}: esperanto wav2vec2 (xlsr-large widths, vocab 44): checkpoint read "
+          f"{w2v_load_ms:.1f} ms; extract {eo_ms:.3f} ms first, {eo_wall:.3f} ms warm, device "
+          f"busy {fmt_ms(eo_prof['device_busy_ms'], ' ms')}, idle share "
+          f"{fmt_ms(eo_prof['idle_share'])}")
+
+    # streaming: the same wav through the card's model and the CPU's; the
+    # windows of run() and the get_next_feat sequence of the same stream
+    def stream(model):
+        asr = StreamingASR(wav_path, model=model, save_feats=True)
+        seg_ms, feats_seq, forward = [], [], asr._forward
+
+        def timed(seg):
+            ts = time.perf_counter()
+            out = forward(seg)
+            seg_ms.append((time.perf_counter() - ts) * 1e3)
+            return out
+
+        asr._forward = timed
+        n_seg = 0
+        while asr.run_step():
+            if len(seg_ms) > n_seg:  # a segment came in: one video frame's window stack
+                n_seg = len(seg_ms)
+                feats_seq.append(asr.get_next_feat())
+        return asr.run(), np.stack(feats_seq), seg_ms
+
+    st_wins, st_feats, seg_ms = stream(w2v)
+    st_ref, st_feats_ref, _ = stream(w2v_cpu)
+    errs["streaming_windows"] = held("streaming windows", st_wins, st_ref, W2V_BOUND, path=path)
+    errs["streaming_next_feat"] = held("get_next_feat sequence", st_feats, st_feats_ref,
+                                       W2V_BOUND, path=path)
+    del w2v_cpu
+    if st_wins.shape[1:] != (16, 44) or st_feats.shape[1:] != (8, 44, 16):
+        raise AssertionError(f"{path}: streaming {st_wins.shape}, {st_feats.shape}")
+    seg_steady = float(np.median(seg_ms[1:-1])) if len(seg_ms) > 2 else seg_ms[-1]
+    print(f"{path}: StreamingASR (context 12, strides 4/4): {len(seg_ms)} segments (the last "
+          f"the flush), ms per segment forward median {seg_steady:.3f} (first {seg_ms[0]:.3f}, "
+          f"flush {seg_ms[-1]:.3f}), windows {st_wins.shape}, {len(st_feats)} get_next_feat "
+          f"stacks")
+
+    # the DeepSpeech family's wav-to-video path
+    acfg = adnerf_cfg(cfg)
+    write_adnerf_checkpoint(acfg)
+    npy = os.path.join(root, "deepspeech_win.npy")
+    np.save(npy, ds_wins)
+    infer = ADNeRFInfer(acfg)
+    mp4 = os.path.join(out_dir, f"{path}_adnerf.mp4")
+    frames, render = [], infer.render_frame
+    infer.render_frame = lambda i, conds: frames.append(render(i, conds)) or frames[-1]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    infer.run(npy, mp4, n_frames=ASR_VIDEO_FRAMES)
+    torch.cuda.synchronize()
+    video_ms = (time.perf_counter() - t0) * 1e3 / ASR_VIDEO_FRAMES
+    frame = frames[-1]
+    bg = infer.dataset[len(frames) - 1]["bg_img"].reshape(frame.shape)
+    shown = float(np.abs(frame - bg).max())
+    if not os.path.getsize(mp4) or frame.shape != (HW, HW, 3) or not np.isfinite(
+            frame).all() or shown < 0.02:
+        raise AssertionError(f"{path}: ADNeRF frame {frame.shape}, shows {shown}")
+    launches = dict(LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{path}: the ASR path launched {launches}")
+    clock.append(time.perf_counter())
+    print(f"{path}: ADNeRF ({ADNERF_YAML}) from the DeepSpeech windows: {ASR_VIDEO_FRAMES} "
+          f"frames at {HW}² with the mp4, ms/frame {video_ms:.3f}; launches "
+          f"{json.dumps(launches)} (the ASR path runs neither kernel)")
+    record = {"audio_seconds": AUDIO_SECONDS, "mfcc_rows": n_rows, "mfcc_host_ms": mfcc_ms,
+              "deepspeech": {"widths": DS_WIDTHS, "graph_read_ms": load_ms,
+                             "extract_ms": extract_ms, "profile": ds_prof,
+                             "lstm_bound_ms": lstm_bound, "forward_bound_ms": forward_bound},
+              "esperanto": {"checkpoint_read_ms": w2v_load_ms, "extract_first_ms": eo_ms,
+                            "profile": eo_prof},
+              "streaming": {"segments": len(seg_ms), "segment_ms": seg_ms,
+                            "segment_ms_median": seg_steady},
+              "adnerf_ms_per_frame_video": video_ms, "card_vs_cpu_max_abs": errs,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return record, launches, {}
+
+
+#: the pose path: a synthetic store at talking-head clip lengths (10–16 s
+#: at 25 fps), ``egs/datasets/videos/May/audio2pose.yaml``'s keys
+POSE_YAML = "egs/datasets/videos/May/audio2pose.yaml"
+POSE_CLIPS = (16, 4)
+POSE_FRAMES = (250, 400)
+POSE_STEPS = 8
+POSE_PROFILE_FRAMES = 25
+POSE_LOSS_BOUND = 1e-5
+POSE_GRAD_BOUND = 1e-4
+#: the rollout's poses card vs CPU, relative to max |CPU|: 200 frames, each
+#: feeding its sample back into the history
+POSE_ROLLOUT_BOUND = 1e-4
+
+
+def write_pose_store(root: str, seed: int = 0) -> str:
+    """``train``/``val`` clips of ``audio [T, 58]`` (the DeepSpeech centre
+    columns' width) and ``pose [T, 6]`` written with ``IndexedDatasetBuilder``, and
+    ``stats.npz`` (``mean_trans``, ``init_pose``) → the store's dir."""
+    import numpy as np
+
+    from geneface_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(root, exist_ok=True)
+    for prefix, n in zip(("train", "val"), POSE_CLIPS):
+        b = IndexedDatasetBuilder(os.path.join(root, prefix))
+        for i in range(n):
+            T = rng.randint(*POSE_FRAMES)
+            t = np.arange(T)
+            audio = (np.sin(0.2 * t)[:, None] * rng.randn(1, 58)
+                     + rng.randn(T, 58) * 0.5).astype(np.float32)
+            pose = np.stack([0.1 * np.sin(0.05 * t + k) + 0.02 * np.sin(0.31 * t * (k + 1))
+                             for k in range(6)], -1).astype(np.float32)
+            b.add_item({"audio": audio, "pose": pose}, id=i)
+        b.finalize()
+    np.savez(os.path.join(root, "stats.npz"), mean_trans=np.array([0.0, 0.0, -4.0], np.float32),
+             init_pose=np.array([0.02, -0.01, 0.0, 0.01, 0.0, 0.0], np.float32))
+    return root
+
+
+def feeds_nothing(model) -> set:
+    """The parameters of the WaveNet's last residual conv: its output feeds
+    no later block, so they get no gradient (zeros in JAX)."""
+    return {f"backbone.block_{model.backbone.n_blocks - 1}.res.{a}" for a in ("weight", "bias")}
+
+
+def pose_step_vs_cpu(task, batch, path: str) -> dict:
+    """One step's loss and gradients on ``batch``: the card, then a CPU task
+    with the card task's parameters, the card's LeakyReLU decisions
+    replayed; every parameter but the last block's residual conv (it feeds
+    nothing) has a non-zero gradient."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.models.audio2pose import models as a2p_models
+
+    cpu = type(task)(task.cfg, device="cpu")
+    cpu.build()
+    cpu.model.load_state_dict(task.model.state_dict())
+    decisions = CardDecisions((a2p_models,))
+    out = []
+    for t, ctx in ((task, decisions.record), (cpu, decisions.replay)):
+        with ctx():
+            t.model.zero_grad(set_to_none=True)
+            loss, _ = t.loss_fn(t.to_device(batch))
+            loss.backward()
+        out.append((float(loss.detach()), {n: p.grad.detach().cpu().double()
+                                           for n, p in t.model.named_parameters()
+                                           if p.grad is not None}))
+    task.model.zero_grad(set_to_none=True)
+    (lc, gc), (lp, gp) = out
+    dead = {n for n, _ in task.model.named_parameters()} - set(gp)
+    zero = [n for n, g in gc.items() if not bool((g != 0).any())]
+    loss_rel = abs(lc - lp) / abs(lp)
+    rel = {k: float(torch.linalg.norm(gc[k] - gp[k]) / torch.linalg.norm(gp[k]).clamp_min(1e-30))
+           for k in gp}
+    worst = max(rel, key=rel.get)
+    print(f"{path}: step card vs CPU: loss rel {loss_rel:.3e} (bound {POSE_LOSS_BOUND:g}); "
+          f"gradients relative L2 max {rel[worst]:.3e} at {worst} (bound {POSE_GRAD_BOUND:g}) "
+          f"over {len(rel)} tensors; LeakyReLU decisions replayed: {decisions.flips} of "
+          f"{decisions.elements} differed on the CPU; without a gradient {sorted(dead)}")
+    if set(gc) != set(gp) or dead != feeds_nothing(task.model) or zero or not np.isfinite(
+            [lc, lp]).all():
+        raise AssertionError(f"{path}: gradients of {sorted(set(gc) ^ set(gp))}, none at "
+                             f"{sorted(dead)}, zero at {zero}, losses {lc} {lp}")
+    if not (loss_rel <= POSE_LOSS_BOUND and rel[worst] <= POSE_GRAD_BOUND):
+        raise AssertionError(f"{path}: card step disagrees with the CPU")
+    return {"loss_rel": loss_rel, "grad_rel_l2_max": rel[worst], "grad_rel_l2_at": worst,
+            "leaky_flips": decisions.flips, "leaky_elements": decisions.elements,
+            "grad_rel_l2_median": float(np.median(list(rel.values())))}
+
+
+def pose_phase(cfg, out_dir: str, path: str = "pose") -> tuple:
+    """Audio2pose: ``Trainer.fit`` of ``Audio2PoseTask`` under
+    ``May/audio2pose.yaml``'s keys (batch 8, ``seq_len`` 200,
+    ``recept_field`` 100, ``audio_in_dim`` 58) for 8 steps with a
+    validation on a store the script writes, every loss finite and every
+    live parameter's gradient non-zero, one step held against the CPU; then
+    ``Audio2PoseInfer.infer`` of the ``asr`` path's DeepSpeech windows from
+    the trained work dir → c2w ``[200, 4, 4]``, held against the CPU →
+    (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.config.config import load_config
+    from geneface_tpu_torch.inference.audio2pose_infer import Audio2PoseInfer
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.audio2pose import Audio2PoseTask
+    from geneface_tpu_torch.training.trainer import Trainer
+
+    root = os.path.dirname(cfg["work_dir"])
+    store = write_pose_store(os.path.join(root, "pose_store"))
+    work = os.path.join(root, "pose_work")
+    pcfg = dict(load_config(os.path.join(REPO, POSE_YAML)))
+    pcfg.update(data_dir=store, work_dir=work, audio_in_dim=58, max_updates=POSE_STEPS,
+                val_check_interval=POSE_STEPS, tb_log_interval=1, num_sanity_val_steps=0,
+                eval_max_batches=4)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    torch.cuda.reset_peak_memory_stats()
+    task = Audio2PoseTask(pcfg)
+    times, losses, step_fn = [], [], task.train_step
+
+    def timed(batch):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = step_fn(batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(out["total_loss"]))
+        flat = {n for n, p in task.model.named_parameters()
+                if p.grad is None or not bool((p.grad != 0).any())}
+        if not np.isfinite(losses[-1]) or flat != feeds_nothing(task.model):
+            raise AssertionError(f"{path}: loss {losses[-1]}, no gradient at {sorted(flat)}")
+        return out
+
+    task.train_step = timed
+    t0 = time.perf_counter()
+    assert Trainer(task).fit() == POSE_STEPS
+    fit_s = time.perf_counter() - t0
+    task.train_step = step_fn
+    logged = [json.loads(line) for line in open(os.path.join(work, "metrics.jsonl"))]
+    val = [m for m in logged if any(k.startswith("val/") for k in m)]
+    if len(times) != POSE_STEPS or not val or not os.path.exists(
+            os.path.join(work, f"model_ckpt_steps_{POSE_STEPS}.ckpt")):
+        raise AssertionError(f"{path}: {len(times)} steps, validation {val}")
+    median = float(np.median(times[2:]))
+    batches = task.train_batches(0)
+    batch = next(batches)
+    prof = nerf_profile(lambda: task.train_step(batch), out_dir, f"{path}_step", median)
+    check = pose_step_vs_cpu(task, next(batches), path)
+    B, L = batch["audio"].shape[:2]
+    print(f"{path}: Trainer.fit {POSE_STEPS} steps + validation in {fit_s:.1f} s; median "
+          f"ms/step {median:.3f} over steps 2-{POSE_STEPS - 1} ({B} × {L} frames); steps ms "
+          f"{[round(t, 3) for t in times]}; device busy {fmt_ms(prof['device_busy_ms'], ' ms')}"
+          f", idle share {fmt_ms(prof['idle_share'])}, {prof['launches']} launches; losses "
+          f"{[round(v, 6) for v in losses]}; validation {json.dumps(val[-1])}")
+
+    # the rollout: the asr path's DeepSpeech windows → c2w
+    npy = os.path.join(root, "asr", "deepspeech_win.npy")
+    icfg = dict(pcfg, audio2pose_work_dir=work, pose_data_dir=store)
+    infer = Audio2PoseInfer(icfg)
+    out_npy = os.path.join(root, "pose_c2w.npy")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c2w = infer.infer(deepspeech_npy=npy, out_npy=out_npy)
+    torch.cuda.synchronize()
+    infer_ms = (time.perf_counter() - t0) * 1e3
+    T = len(np.load(npy))
+    if c2w.shape != (T, 4, 4) or not np.isfinite(c2w).all() or not np.array_equal(
+            np.load(out_npy), c2w):
+        raise AssertionError(f"{path}: c2w {c2w.shape}")
+    cond = infer.get_cond_from_input(npy)
+    roll_wall = host_ms(lambda: infer.rollout(cond), n=1)
+    # the profiled window: the first frames only (all 200 are ~33,000 launches)
+    head = cond[:POSE_PROFILE_FRAMES]
+    roll = nerf_profile(lambda: infer.rollout(head), out_dir, f"{path}_rollout",
+                        host_ms(lambda: infer.rollout(head), n=3))
+    ref = Audio2PoseInfer(icfg, device="cpu").infer(deepspeech_npy=npy)
+    errs = {"rollout_c2w": held(f"rollout c2w of {T} frames", c2w, ref, POSE_ROLLOUT_BOUND,
+                                path=path)}
+    R = infer.model.recept_field
+    macs = R * (58 * 256 + 256 * 256 + 12 * 128 + 128 * 128 + 6 * (
+        2 * 2 * 128 * 128 + 2 * 256 * 128 + 128 * 128 + 128 * 256) + 256 * 25 + 25 * 25)
+    n_params = sum(p.numel() for p in infer.model.parameters())
+    frame_bound = max(2 * macs / PEAK_F32_OPS_S, 4 * n_params / PEAK_BYTES_S) * 1e3
+    launches = dict(LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{path}: the pose path launched {launches}")
+    per_frame = roll_wall / T
+    print(f"{path}: Audio2PoseInfer.infer of {T} frames {infer_ms:.3f} ms (checkpoint read "
+          f"before); rollout {roll_wall:.3f} ms = {per_frame:.3f} ms per rolled frame; device "
+          f"busy {fmt_ms(roll['device_busy_ms'], ' ms')}, idle share "
+          f"{fmt_ms(roll['idle_share'])} and launches per frame "
+          f"{fmt_ms(None if roll['launches'] is None else roll['launches'] / len(head))} over "
+          f"the first {len(head)} frames ({roll['wall_ms']:.3f} ms); bound per "
+          f"frame {frame_bound * 1e3:.3f} µs ({2 * macs / 1e6:.1f} MFLOP over the {R}-wide "
+          f"window at {PEAK_F32_OPS_S / 1e12:.0f} TFLOP/s float32); launches "
+          f"{json.dumps(launches)} (the pose path runs neither kernel)")
+    record = {"fit_s": fit_s, "ms_per_step": median, "steps_ms": times, "losses": losses,
+              "validation": val[-1], "step_profile": prof, "step_vs_cpu": check,
+              "infer_ms": infer_ms, "rollout_ms": roll_wall, "ms_per_rolled_frame": per_frame,
+              "rollout_profile": roll, "rollout_frame_bound_ms": frame_bound,
+              "card_vs_cpu_max_abs": errs,
+              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return record, launches, {}
+
+
 def main() -> int:
     import torch
 
@@ -3281,6 +3812,8 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi)  # the card's name and power limit, as nvidia-smi gives them
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
 
     t0 = time.time()
@@ -3309,7 +3842,9 @@ def main() -> int:
                   ("import_train", import_train_phase, import_cfg(cfg)),
                   ("datagen", datagen_phase, cfg),
                   ("nerf_serve", nerf_serve_phase, cfg),
-                  ("nerf_train", nerf_train_phase, cfg)]
+                  ("nerf_train", nerf_train_phase, cfg),
+                  ("asr", asr_phase, cfg),
+                  ("pose", pose_phase, cfg)]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

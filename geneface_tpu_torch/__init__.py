@@ -1,7 +1,9 @@
 """PyTorch + CUDA port of geneface_tpu: the RAD-NeRF head and torso
 (serving and training), the speech-to-landmarks path (HuBERT, the
-Audio2Motion VAE, the post-net, the LLE projection; serving and training)
-and datagen (a person's video to the dataset the head trains on).
+Audio2Motion VAE, the post-net, the LLE projection; serving and training),
+datagen (a person's video to the dataset the head trains on), the vanilla
+NeRF, the ASR conditions (DeepSpeech and esperanto windows from a wav, the
+streaming ASR) and audio2pose (training and the pose rollout).
 
 The JAX package ``geneface_tpu`` stays the reference; this package mirrors
 its layout (``ops/``, ``models/``, ``inference/``, ``data/``, ``datagen/``,

@@ -36,6 +36,13 @@ their submodules as flax does, so :func:`load_flax_variables` and
   :func:`load_flax_npz` reads the flattened ``.npz`` (``params/…``,
   ``batch_stats/…`` keys) that the JAX package's weight converters write.
 
+The audio2pose WaveNet-GMM (``audio_fc1``/``audio_fc2``, ``backbone/
+start1``, ``start2``, ``block_<i>/{filter,gate,cond_filter,cond_gate,res,
+skip}``, ``end1``, ``end2``) goes the same way: flax ``Dense`` ↔ ``Linear``,
+and its causal ``Conv`` kernels ``[K, Cin, Cout]`` ↔ ``Conv1d`` weights
+``[Cout, Cin, K]`` (no flip: the port pads on the left as flax's ``VALID``
+conv of the left-padded input reads it).
+
 SyncNet (``ConvBlock_0..25``, each ``Conv_0`` and ``LayerNorm_0`` or
 ``BatchNorm_0``) and the post-net's ``MLPDiscriminator`` (``Dense_0..3``
 with bias, ``Dense_4`` without) are mapped the same way, by their flax
@@ -58,6 +65,12 @@ flax tree both ways, :func:`nerf_flax_path` names one entry's flax path:
   ``lm_encoder_mlp.<i>`` and ``color_encoder.<i>``;
 
 every ``Dense`` with its bias, kernel ``[in, out]`` ↔ weight ``[out, in]``.
+
+DeepSpeech (:mod:`geneface_tpu_torch.datagen.deepspeech`):
+:func:`deepspeech_state_dict` and :func:`deepspeech_params` map the frozen
+graph's param dict ``{h1, b1, h2, b2, h3, b3, lstm_kernel, lstm_bias, h5,
+b5, h6, b6}`` (TF dense kernels ``[in, out]``) ↔ ``h<i>.weight [out, in]``,
+``h<i>.bias``, and the LSTM's ``lstm_kernel``/``lstm_bias`` as they are.
 
 LPIPS (:mod:`geneface_tpu_torch.models.lpips`): :func:`lpips_state_dict` and
 :func:`lpips_flax_params` map the flax tree ``alex/conv{i}/{kernel,bias}``
@@ -87,6 +100,8 @@ __all__ = [
     "nerf_flax_path",
     "nerf_flax_to_state_dict",
     "nerf_state_dict_to_flax",
+    "deepspeech_state_dict",
+    "deepspeech_params",
 ]
 
 _AUDIO_DENSE = {
@@ -417,3 +432,30 @@ def nerf_state_dict_to_flax(values: dict) -> dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.array(_kernel_layout(v) if path[-1] == "kernel" else v, order="C")
     return {"params": tree}
+
+
+_DEEPSPEECH_DENSE = ("1", "2", "3", "5", "6")
+
+
+def deepspeech_state_dict(params: dict) -> dict:
+    """The frozen graph's DeepSpeech param dict (numpy, possibly read-only
+    ``np.frombuffer`` arrays) → ``{name: tensor}`` (fresh copies) for
+    ``DeepSpeechNet.load_state_dict``."""
+    sd = {}
+    for i in _DEEPSPEECH_DENSE:
+        sd[f"h{i}.weight"] = torch.tensor(np.asarray(params[f"h{i}"], np.float32).T)
+        sd[f"h{i}.bias"] = torch.tensor(np.asarray(params[f"b{i}"], np.float32))
+    for k in ("lstm_kernel", "lstm_bias"):
+        sd[k] = torch.tensor(np.asarray(params[k], np.float32))
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def deepspeech_params(model: nn.Module) -> dict:
+    """Inverse of :func:`deepspeech_state_dict` → the param dict, numpy."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    out = {}
+    for i in _DEEPSPEECH_DENSE:
+        out[f"h{i}"] = np.array(sd[f"h{i}.weight"].T, order="C")
+        out[f"b{i}"] = sd[f"h{i}.bias"]
+    out["lstm_kernel"], out["lstm_bias"] = sd["lstm_kernel"], sd["lstm_bias"]
+    return out

@@ -3,7 +3,10 @@ frames and wav to the ``trainval_dataset.npy`` that head training reads —
 face parsing (BiSeNet), landmarks (FAN), the 3DMM landmark track and its
 photometric refinement on the soft-splat renderer (K1 and K8), 3DMM
 coefficients (Deep3DRecon), the audio features and the binarizers — and
-HuBERT (:mod:`~geneface_tpu_torch.datagen.wav2vec2`).
+HuBERT (:mod:`~geneface_tpu_torch.datagen.wav2vec2`); the ASR conditions
+(:mod:`~geneface_tpu_torch.datagen.asr_features`: DeepSpeech from a frozen
+``.pb``, the esperanto wav2vec2) and the streaming ASR
+(:mod:`~geneface_tpu_torch.datagen.streaming_asr`).
 
 Only the tracker and the renderer run without weights; BiSeNet, FAN and
 ReconNet read converted ``.npz`` weights (none are in the repository).

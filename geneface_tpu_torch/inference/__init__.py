@@ -1,4 +1,5 @@
 from geneface_tpu_torch.inference.audio2motion_infer import Audio2MotionInfer
+from geneface_tpu_torch.inference.audio2pose_infer import Audio2PoseInfer
 from geneface_tpu_torch.inference.nerf_infer import ADNeRFInfer, LM3dNeRFInfer
 from geneface_tpu_torch.inference.postnet_infer import PostnetInfer
 from geneface_tpu_torch.inference.radnerf_infer import (
@@ -7,5 +8,5 @@ from geneface_tpu_torch.inference.radnerf_infer import (
     save_mp4,
 )
 
-__all__ = ["ADNeRFInfer", "Audio2MotionInfer", "LM3dNeRFInfer", "PostnetInfer",
+__all__ = ["ADNeRFInfer", "Audio2MotionInfer", "Audio2PoseInfer", "LM3dNeRFInfer", "PostnetInfer",
            "RADNeRFInfer", "pick_ray_capacity", "save_mp4"]

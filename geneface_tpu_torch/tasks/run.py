@@ -8,7 +8,9 @@ package's class path) selects the port's task through :data:`TASKS`, and the
 task trains under the :class:`~geneface_tpu_torch.training.trainer.Trainer`
 in ``checkpoints/<exp_name>``, or with ``--infer`` runs the task's
 ``run_inference`` (the post-net: wav → lm3d ``.npy``; RAD-NeRF and the
-vanilla NeRF: lm3d, or DeepSpeech windows for ADNeRF, → video). Both run on ``cuda`` unless ``--device cpu`` is given. Stage A
+vanilla NeRF: lm3d, or DeepSpeech windows for ADNeRF, → video;
+audio2pose: DeepSpeech windows → the c2w ``.npy``). Both run on ``cuda``
+unless ``--device cpu`` is given. Stage A
 trains in the order its tasks load each other: SyncNet
 (``egs/datasets/lrs3/lm3d_syncnet.yaml``), then the VAE
 (``lm3d_vae_sync.yaml``, ``syncnet_work_dir``), then the post-net
@@ -23,6 +25,7 @@ import os
 
 from geneface_tpu_torch.config.config import load_config
 from geneface_tpu_torch.tasks.audio2motion import PitchContourVAESyncTask, VAESyncAudio2MotionTask
+from geneface_tpu_torch.tasks.audio2pose import Audio2PoseTask
 from geneface_tpu_torch.tasks.lm3d_nerf import (
     ADNeRFTask,
     ADNeRFTorsoTask,
@@ -49,6 +52,7 @@ TASKS = {
     "geneface_tpu.tasks.lm3d_nerf.Lm3dNeRFTorsoTask": Lm3dNeRFTorsoTask,
     "geneface_tpu.tasks.lm3d_nerf.ADNeRFTask": ADNeRFTask,
     "geneface_tpu.tasks.lm3d_nerf.ADNeRFTorsoTask": ADNeRFTorsoTask,
+    "geneface_tpu.tasks.audio2pose.Audio2PoseTask": Audio2PoseTask,
 }
 
 

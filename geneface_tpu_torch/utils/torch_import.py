@@ -38,6 +38,7 @@ __all__ = [
     "syncnet_params_from_torch",
     "fvae_params_from_torch",
     "vae_model_params_from_torch",
+    "nerf_backbone_params_from_torch",
     "occupancy_from_torch",
     "torso_density_grid_from_torch",
     "import_radnerf_checkpoint",
@@ -506,4 +507,39 @@ def vae_model_params_from_torch(sd: Mapping, variables: Mapping) -> dict:
         _assign(params, ("pitch_embed", "embedding"), _arr(sd, "pitch_embed.weight"),
                 "pitch_embed.weight")
     fvae_params_from_torch(sd, params["vae"], prefix_t="vae.")
+    return _finalize(tree)
+
+
+# --------------------------------------------------------- vanilla NeRF ----
+def nerf_backbone_params_from_torch(sd: Mapping, params, prefix_t: str = "") -> dict:
+    """GeneFace ``NeRFBackbone`` (``modules/nerfs/adnerf/backbone.py:82-135``)
+    state_dict → the flax-layout tree ``{"params": {"Dense_<i>": ...}}`` on
+    the template ``params``: one backbone's subtree of
+    :func:`~geneface_tpu_torch.convert.nerf_state_dict_to_flax`, e.g.
+    ``{"params": nerf_state_dict_to_flax(model.state_dict())["params"]
+    ["model_coarse"]}``.
+
+    Dense numbering: 0..D-1 density_linears, D density_out, D+1..D+C
+    color_linears, D+C+1 color_out. ``prefix_t`` selects a sub-module of a
+    larger state_dict (e.g. ``"model_coarse."``).
+    """
+    tree = _to_mutable(params)
+    out = tree["params"]
+    dd = [k for k in sd if k.startswith(f"{prefix_t}density_linears.")]
+    n_density = len({k.split(".")[-2] for k in dd})
+    cc = [k for k in sd if k.startswith(f"{prefix_t}color_linears.")]
+    n_color = len({k.split(".")[-2] for k in cc})
+
+    def put(i, t_key):
+        _assign(out, (f"Dense_{i}", "kernel"), _lin(sd, f"{t_key}.weight"),
+                f"{t_key}.weight")
+        _assign(out, (f"Dense_{i}", "bias"), _arr(sd, f"{t_key}.bias"),
+                f"{t_key}.bias")
+
+    for i in range(n_density):
+        put(i, f"{prefix_t}density_linears.{i}")
+    put(n_density, f"{prefix_t}density_out_linear")
+    for i in range(n_color):
+        put(n_density + 1 + i, f"{prefix_t}color_linears.{i}")
+    put(n_density + 1 + n_color, f"{prefix_t}color_out_linear")
     return _finalize(tree)

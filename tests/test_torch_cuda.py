@@ -531,3 +531,60 @@ def test_vanilla_render_on_card_matches_cpu(card):
     for n, g in grads[1].items():
         err = float(torch.linalg.norm(grads[0][n] - g) / torch.linalg.norm(g).clamp_min(1e-30))
         assert err < 1e-4, (n, err)
+
+
+def test_deepspeech_on_card_matches_cpu(card):
+    """DeepSpeech at narrow widths (494→256→256→256, cell 256) over 200
+    frames on the card against the CPU: logits within 1e-5 of max |CPU|
+    (TF32 off; the LSTM carries the products' other summation order across
+    the frames)."""
+    from geneface_tpu_torch import set_full_fp32
+    from geneface_tpu_torch.datagen.deepspeech import DeepSpeechNet
+    from geneface_tpu_torch.models.layers import init_weights_
+
+    set_full_fp32()
+    net = init_weights_(DeepSpeechNet(494, 256, 256, 29), torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        k = net.lstm_kernel
+        k.copy_(torch.randn(k.shape, generator=torch.Generator().manual_seed(1)) / 23.0)
+    x = torch.randn(200, 494, generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        want = net.eval()(x)
+        got = net.to(card)(x.to(card)).cpu()
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5 * float(want.abs().max()))
+
+
+def test_audio2pose_on_card_matches_cpu(card):
+    """The audio2pose model's forward and gradient on a batch of 2 × 40
+    frames, and a 12-frame rollout, on the card against the CPU: within
+    1e-5 of max |CPU| and 1e-4 relative L2 (TF32 off)."""
+    from geneface_tpu_torch import set_full_fp32
+    from geneface_tpu_torch.models.audio2pose import (
+        Audio2PoseModel,
+        autoregressive_infer,
+        gmm_log_loss,
+    )
+    from geneface_tpu_torch.models.layers import init_weights_
+
+    set_full_fp32()
+    gen = torch.Generator().manual_seed(0)
+    cpu = init_weights_(Audio2PoseModel(recept_field=16), gen)
+    gpu = Audio2PoseModel(recept_field=16).to(card)
+    gpu.load_state_dict(cpu.state_dict())
+    audio = torch.randn(2, 40, 58, generator=gen)
+    pv = torch.randn(2, 41, 12, generator=gen) * 0.1
+    outs, grads = [], []
+    for model, dev in ((gpu, card), (cpu, torch.device("cpu"))):
+        out = model(audio.to(dev), pv[:, :-1].to(dev))
+        gmm_log_loss(out, pv[:, 1:].to(dev)).backward()
+        outs.append(out.detach().cpu())
+        grads.append({n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    torch.testing.assert_close(outs[0], outs[1], rtol=0,
+                               atol=1e-5 * float(outs[1].abs().max()))
+    for n, g in grads[1].items():
+        assert float(torch.linalg.norm(grads[0][n] - g) / torch.linalg.norm(g)) <= 1e-4, n
+    poses = [autoregressive_infer(m, audio[0, :12].to(m.audio_fc1.weight.device),
+                                  init_pose=np.full(6, 0.05, np.float32)).cpu()
+             for m in (gpu, cpu)]
+    torch.testing.assert_close(poses[0], poses[1], rtol=0,
+                               atol=1e-5 * float(poses[1].abs().max()))

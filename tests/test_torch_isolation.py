@@ -86,6 +86,34 @@ def test_walk_covers_vanilla_nerf():
         assert f"geneface_tpu_torch.{name}" in mods, name
 
 
+def test_walk_covers_asr_and_pose():
+    """The ASR conditions, the streaming ASR and audio2pose (every module
+    that ``chip_smoke.py``'s ``asr`` and ``pose`` import inside their
+    functions) are among the modules imported above, and the task map knows
+    every JAX task class."""
+    mods = set(_port_modules())
+    for name in ("datagen._ds_audio", "datagen.deepspeech", "datagen.asr_features",
+                 "datagen.streaming_asr", "datagen.wav2vec2", "models.audio2pose",
+                 "models.audio2pose.gmm", "models.audio2pose.models", "tasks.audio2pose",
+                 "inference.audio2pose_infer", "inference.nerf_infer", "utils.torch_import"):
+        assert f"geneface_tpu_torch.{name}" in mods, name
+    import ast
+
+    from geneface_tpu_torch.tasks.run import TASKS
+
+    jax_tasks = set()
+    tasks_dir = os.path.join(REPO, "geneface_tpu", "tasks")
+    for fname in sorted(os.listdir(tasks_dir)):
+        if not fname.endswith(".py") or fname in ("__init__.py", "run.py"):
+            continue
+        tree = ast.parse(open(os.path.join(tasks_dir, fname)).read())
+        for node in tree.body:
+            if isinstance(node, ast.ClassDef) and node.name.endswith("Task") and not \
+                    node.name.startswith("_"):
+                jax_tasks.add(f"geneface_tpu.tasks.{fname[:-3]}.{node.name}")
+    assert jax_tasks and jax_tasks <= set(TASKS), sorted(jax_tasks - set(TASKS))
+
+
 def test_datagen_path_runs_without_opencv_or_pillow(tmp_path):
     """The card's host has neither OpenCV nor Pillow: with both made
     unimportable, the datagen path from frames in memory to the store runs

@@ -195,3 +195,50 @@ def test_field_gradient_matches_jax():
         for k in path:
             node = node[k.key]
         assert rel_l2(node, leaf) < GRAD, (path, rel_l2(node, leaf))
+
+
+def test_backbone_importer_matches_jax():
+    """``utils/torch_import.py::nerf_backbone_params_from_torch`` on a
+    seeded GeneFace ``NeRFBackbone`` state dict (``density_linears.<i>``,
+    ``density_out_linear``, ``color_linears.<i>``, ``color_out_linear``,
+    under a ``model_fine.`` prefix): the same tree as the JAX importer's,
+    and the port's backbone holding it matches the JAX one's forward."""
+    from geneface_tpu.models.nerf.backbone import NeRFBackbone as JBackbone
+    from geneface_tpu.utils import torch_import as j_import
+    from geneface_tpu_torch.models.nerf import NeRFBackbone
+    from geneface_tpu_torch.utils import torch_import
+
+    rng = np.random.RandomState(9)
+    pos = rng.randn(3, 4, 63).astype(np.float32)
+    cond = rng.randn(16).astype(np.float32)
+    view = rng.randn(3, 27).astype(np.float32)
+    jb = JBackbone(hid_dim=32)
+    jtemplate = jb.init(jax.random.PRNGKey(0), jnp.asarray(pos), jnp.asarray(cond),
+                        jnp.asarray(view))
+    tb = NeRFBackbone(63 + 16, 27, hid_dim=32)
+    names = ([f"density_linears.{i}" for i in range(8)] + ["density_out_linear"]
+             + [f"color_linears.{i}" for i in range(3)] + ["color_out_linear"])
+    sd = {}
+    for i, name in enumerate(names):
+        w = tb.layers[i].weight
+        sd[f"model_fine.{name}.weight"] = rng.randn(*w.shape).astype(np.float32) * 0.2
+        sd[f"model_fine.{name}.bias"] = rng.randn(w.shape[0]).astype(np.float32) * 0.2
+    sd["model_fine.unrelated"] = np.zeros(3, np.float32)  # other keys are ignored
+    template = {"params": nerf_state_dict_to_flax(
+        {f"model_fine.{k}": v for k, v in tb.state_dict().items()})["params"]["model_fine"]}
+    got = torch_import.nerf_backbone_params_from_torch(sd, template, prefix_t="model_fine.")
+    ref = j_import.nerf_backbone_params_from_torch(sd, jtemplate, prefix_t="model_fine.")
+    flat = lambda t: {jax.tree_util.keystr(k): np.asarray(v)
+                      for k, v in jax.tree_util.tree_flatten_with_path(t)[0]}
+    got_l, ref_l = flat(got), flat(ref)
+    assert sorted(got_l) == sorted(ref_l) and len(got_l) == 26
+    for k in ref_l:
+        assert got_l[k].dtype == np.float32
+        np.testing.assert_array_equal(got_l[k], ref_l[k])
+    loaded = nerf_flax_to_state_dict({"model_fine": got["params"]})
+    tb.load_state_dict({k.split(".", 1)[1]: torch.as_tensor(v) for k, v in loaded.items()})
+    close(tb(torch.as_tensor(pos), torch.as_tensor(cond), torch.as_tensor(view)).detach().numpy(),
+          jb.apply(ref, jnp.asarray(pos), jnp.asarray(cond), jnp.asarray(view)))
+    with pytest.raises(ValueError, match="shape mismatch"):
+        bad = dict(sd, **{"model_fine.color_out_linear.weight": np.zeros((3, 5), np.float32)})
+        torch_import.nerf_backbone_params_from_torch(bad, template, prefix_t="model_fine.")

@@ -301,9 +301,9 @@ def test_run_cli_trains_and_checkpoint_renders(synth_dir, tmp_path):
     assert main(["--config", str(path), "--exp_name", work, "--device", "cpu"]) == 6
     assert os.path.getmtime(os.path.join(work, "model_ckpt_steps_6.ckpt")) == mtime
     assert os.path.exists(os.path.join(work, "model_ckpt_best.ckpt"))
-    # an unported task raises, and so does the lip phase without LPIPS
+    # an unknown task class raises, and so does the lip phase without LPIPS
     # weights (the JAX guard's error)
     with pytest.raises(NotImplementedError):
-        resolve_task("geneface_tpu.tasks.audio2pose.Audio2PoseTask")
+        resolve_task("geneface_tpu.tasks.no_such_module.NoSuchTask")
     with pytest.raises(ValueError, match="no LPIPS weights are configured"):
         RADNeRFTask(dict(cfg, finetune_lips=True), device="cpu").build()
