@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's fourteen paths at the full width of
+Drives the port's fifteen paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -16,7 +16,21 @@ and of the vanilla NeRF (``egs/egs_bases/nerf/lm3d_nerf.yaml``,
 - head training: ``RADNeRFTask.train_step`` for 20 steps of 65,536 rays
   (the occupancy sweeps of steps 0 and 16 included), every loss finite, a
   non-zero gradient in every parameter group, and one step's loss and
-  gradients checked against the port's plain CPU path on 4,096 rays;
+  gradients checked against the port's plain CPU path on 4,096 rays; the
+  dataset's batch assembly timed apart from the step, numpy against the
+  native loader (``native_loader``; the steps keep the numpy path);
+- data parallelism (``ddp``): (a) ``Trainer.fit`` of the training cell
+  for 20 steps through ``initialize_distributed`` as an NCCL group of
+  world size 1 against two runs without a process group (each step's
+  loss, the final parameters, the plain runs' own spread); (b) two gloo
+  ranks sharing ``cuda:0`` (``torch.multiprocessing.spawn``), 6 head
+  steps with a sweep and 2 lip steps of 64² patches at float32 MLPs, each
+  step started from the one-rank run's parameters and its loss and
+  gradients held against that run's step on the card,
+  the occupancy bit-equal across ranks, the gradient all-reduce's bytes
+  and ms, ms/step and rank 0's idle share; (c) ``render_video`` of 4
+  torso frames split over the two ranks against the one-process render,
+  the mp4 written once; K1 and K8 at the ranks' sites (``ddp.*``);
 - torso serving: a torso checkpoint (the same head, seeded torso weights, a
   torso occupancy planted over the lower half of the screen) through
   ``RADNeRFInfer.render_frames``, checked against the CPU plain path, the
@@ -118,8 +132,9 @@ and of the vanilla NeRF (``egs/egs_bases/nerf/lm3d_nerf.yaml``,
   4, 4]`` held against the CPU, with ms per rolled frame and launches per
   frame. Neither path launches K1 or K8, and the script checks that.
 
-It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, started
-together), sets the launch counts to 0 before each path and checks after it
+It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, and
+``g++`` for the host library, started together), sets the launch counts
+to 0 before each path and checks after it
 that the path launched each kernel at every call site, then holds every
 kernel against its plain PyTorch version on the arguments captured at each
 call site of a real frame, step and sweep of each path (a grid site is
@@ -137,7 +152,7 @@ and the idle share of a frame and of a step of each path
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call; a reference or block grid
 site is named by grid, level and backend), and one ``{"kernels": [...]}``
-JSON line listing every site of the fourteen paths.
+JSON line listing every site of the fifteen paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -282,30 +297,35 @@ def planted_torso_occupancy(grid_size: int):
 
 
 def build_kernels() -> str:
-    """One nvcc per ``csrc/*.cu``, all started together."""
+    """One nvcc per ``csrc/*.cu`` and the host library's g++
+    (``csrc/gf_native.cpp``), all started together."""
     from geneface_tpu_torch import kernels
+    from geneface_tpu_torch.native import build as native_build
+    from geneface_tpu_torch.native import load_library
 
     names = sorted(
         os.path.splitext(os.path.basename(p))[0]
         for p in glob.glob(os.path.join(kernels.CSRC_DIR, "*.cu"))
     )
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    commands = {n: (kernels.build_command(n), kernels.library_path(n)) for n in names}
+    commands["gf_native"] = (native_build.build_command(native_build.SRC,
+                                                         native_build.LIB + ".part"),
+                             native_build.LIB)
     procs = {
-        n: subprocess.Popen(
-            kernels.build_command(n), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True,
-        )
-        for n in names
+        n: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for n, (cmd, _) in commands.items()
     }
     log = []
     for n, p in procs.items():
         out, _ = p.communicate()
         if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {n}:\n{out}")
-        os.replace(kernels.library_path(n) + ".part", kernels.library_path(n))
+            raise RuntimeError(f"the build of {n} failed:\n{out}")
+        os.replace(commands[n][1] + ".part", commands[n][1])
         log.append(f"== {n}\n{out}")
     for n in names:
         kernels.load_kernel(n)
+    load_library()
     return "\n".join(log)
 
 
@@ -1970,6 +1990,8 @@ def train_phase(cfg, out_dir: str, path: str = "train") -> tuple:
     print(f"{path}: sweep alone {sweep:.3f} ms (CUDA events, one unprofiled sweep)")
     record.update(profile=prof, sweep_ms=sweep,
                   grad_check=check_grads_vs_cpu(task, next(batches), path))
+    if path == "train":
+        record["data_ms"] = data_time(task.cfg, path)
 
     # the kernel sites of one step without a sweep and of one sweep
     grids = grid_names(task.model)
@@ -1980,6 +2002,447 @@ def train_phase(cfg, out_dir: str, path: str = "train") -> tuple:
     sites.update(name_sites(capture_calls(task.maybe_update_occ), grids, sweep_path))
     task._step = saved_step
     record["sweep_launches_per_site"] = sweep_chunks
+    return record, launches, sites
+
+
+def data_time(cfg: dict, path: str = "train", n: int = 16) -> dict:
+    """The dataset's batch assembly apart from the step: ``n`` training
+    items of ``n_rays`` rays from the numpy path and from the native
+    loader (``native_loader``), in turns, host ms each; the two must give
+    the same pixel indices and pixels within one uint8 level."""
+    import numpy as np
+
+    from geneface_tpu_torch.data.radnerf_dataset import RADNeRFDataset
+
+    dss = {k: RADNeRFDataset("train", cfg["data_dir"], dict(cfg, native_loader=k == "native"),
+                             training=True) for k in ("numpy", "native")}
+    if dss["native"].native_loader is None or dss["numpy"].native_loader is not None:
+        raise AssertionError(f"{path}: the datasets did not take the paths asked of them")
+    ms, worst = {"numpy": [], "native": []}, 0
+    for i in range(n):
+        items = {}
+        for k in (("numpy", "native") if i % 2 == 0 else ("native", "numpy")):
+            ts = time.perf_counter()
+            items[k] = dss[k][i % len(dss[k])]
+            ms[k].append((time.perf_counter() - ts) * 1e3)
+        a, b = items["native"], items["numpy"]
+        if not np.array_equal(a["inds"], b["inds"]):
+            raise AssertionError(f"{path}: native and numpy batches sampled other pixels")
+        for key in ("gt_img_u8", "bg_img_u8", "bg_torso_img_u8"):
+            worst = max(worst, int(np.abs(a[key].astype(np.int16) - b[key]).max()))
+    if worst > 1:
+        raise AssertionError(f"{path}: native vs numpy pixels differ by {worst} levels")
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    rays = len(items["native"]["inds"])
+    print(f"{path}: host data ms per batch of {rays} rays (dataset item, apart from the "
+          f"step; median of {n}, in turns): numpy {med['numpy']:.3f}, native "
+          f"{med['native']:.3f}; pixels agree within {worst} uint8 level(s); the steps "
+          "above ran with native_loader false")
+    return {"rays": rays, "numpy_ms": med["numpy"], "native_ms": med["native"],
+            "numpy_all_ms": ms["numpy"], "native_all_ms": ms["native"],
+            "max_level_diff": worst}
+
+
+#: the ddp path: the training cell's 6 head steps (the sweep at step 0) and
+#: 2 lip steps of 64² patches, then 4 torso frames, on two gloo ranks that
+#: share the card; the NCCL run is the train cell's TRAIN_STEPS
+DDP_HEAD_STEPS = 6
+DDP_LIP_STEPS = 2
+DDP_FRAMES = 4
+DDP_WORLD = 2
+_DIST_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT",
+             "GF_DIST_BACKEND")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def ddp_cfg(cfg: dict) -> dict:
+    """The ddp steps' cell: the training cell with the lip phase from step
+    ``DDP_HEAD_STEPS`` (64² patches, seeded random LPIPS) and the sweep
+    every 16 steps."""
+    return dict(lip_cfg(cfg), finetune_lips_start_iter=DDP_HEAD_STEPS - 1,
+                update_extra_interval=16)
+
+
+def ddp_batches(dcfg: dict) -> list:
+    """``DDP_HEAD_STEPS`` training items of 65,536 rays, then
+    ``DDP_LIP_STEPS`` lip patches, from the dataset's seeded draws."""
+    from geneface_tpu_torch.data.radnerf_dataset import RADNeRFDataset
+
+    ds = RADNeRFDataset("train", dcfg["data_dir"], dcfg, training=True)
+    out = [ds[i % len(ds)] for i in range(DDP_HEAD_STEPS)]
+    ds.finetune_lip_flag = True
+    return out + [ds[i % len(ds)] for i in range(DDP_LIP_STEPS)]
+
+
+def recorded_steps(task, batches, start_from: list | None = None) -> dict:
+    """``train_step`` over ``batches``: each step's losses, host ms to a
+    synchronize, the gradients the optimizer applies (float32, CPU) and the
+    model's state before each step; ``start_from``: such states, loaded
+    before each step (so that every step starts where the recorded run's
+    did: the card's atomic order, which Adam's first updates amplify, would
+    otherwise take the two runs apart after a step or two)."""
+    import torch
+
+    named = list(task.model.named_parameters())
+    grads, real = [], task.optimizer.step
+
+    def recording():
+        grads.append({n: p.grad.detach().float().cpu() for n, p in named if p.grad is not None})
+        real()
+
+    task.optimizer.step = recording
+    losses, ms, states = [], [], []
+    try:
+        for i, batch in enumerate(batches):
+            if start_from is not None:
+                task.model.load_state_dict(start_from[i])
+            states.append({k: v.detach().cpu().clone() for k, v in task.model.state_dict().items()})
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = task.train_step(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - ts) * 1e3)
+            losses.append({k: float(v) for k, v in out.items()})
+    finally:
+        task.optimizer.step = real
+    return {"losses": losses, "ms": ms, "grads": grads, "states": states}
+
+
+def timed_sync(task, log: list) -> None:
+    """Time every gradient all-reduce of ``task`` (host ms to a
+    synchronize) and count its bytes into ``log``."""
+    import torch
+
+    real = task.sync_grads
+
+    def sync(params):
+        params = list(params)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        real(params)
+        torch.cuda.synchronize()
+        log.append(((time.perf_counter() - ts) * 1e3,
+                    sum(p.grad.numel() * p.grad.element_size() for p in params
+                        if p.grad is not None)))
+
+    task.sync_grads = sync
+
+
+def grad_errors(got: dict, ref: dict) -> dict:
+    """Relative L2 error of each gradient against ``ref``."""
+    if got.keys() != ref.keys():
+        raise AssertionError(f"gradients of {sorted(got)} against {sorted(ref)}")
+    return {n: float((got[n].double() - g.double()).norm() / g.double().norm())
+            if float(g.norm()) > 0 else float(got[n].norm()) for n, g in ref.items()}
+
+
+def ddp_fit(cfg: dict, work: str, nccl: bool, start_from: list | None = None) -> dict:
+    """``Trainer.fit`` of the training cell for ``TRAIN_STEPS`` steps (its
+    validation and checkpoint at the end), alone or through
+    ``initialize_distributed`` as an NCCL group of world size 1 → each
+    step's loss, host ms and applied gradients, the all-reduces, the model's
+    state before each step and the final parameters; ``start_from``: such
+    states, loaded before each step (as in :func:`recorded_steps`: K1's
+    atomic order, which Adam's first updates amplify, would otherwise take
+    two runs a trajectory apart)."""
+    import torch
+
+    from geneface_tpu_torch import parallel
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.training.trainer import Trainer
+
+    fcfg = dict(train_cfg(cfg), work_dir=work, max_updates=TRAIN_STEPS,
+                val_check_interval=TRAIN_STEPS, tb_log_interval=TRAIN_STEPS,
+                num_sanity_val_steps=0, eval_max_batches=1, val_render_frame=False)
+    saved = {k: os.environ.pop(k, None) for k in _DIST_ENV}
+    if nccl:
+        os.environ.update(WORLD_SIZE="1", RANK="0", LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                          MASTER_PORT=str(free_port()))
+    try:
+        dev = parallel.initialize_distributed()
+        if nccl and torch.distributed.get_backend() != ("nccl" if dev.type == "cuda" else "gloo"):
+            raise AssertionError("the world-size-1 group on the card is not NCCL")
+        task = RADNeRFTask(fcfg, device=dev)
+        losses, ms, syncs, grads, states = [], [], [], [], []
+        timed_sync(task, syncs)
+        real = task.train_step
+
+        def step(batch):
+            if start_from is not None:
+                task.model.load_state_dict(start_from[len(losses)])
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in task.model.state_dict().items()})
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = real(batch)
+            losses.append(float(out["total_loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - ts) * 1e3)
+            # the gradients the optimizer applied (zeroed only by the next step)
+            grads.append({n: p.grad.detach().float().cpu()
+                          for n, p in task.model.named_parameters() if p.grad is not None})
+            return out
+
+        task.train_step = step
+        Trainer(task).fit()
+        params = {n: p.detach().float().cpu() for n, p in task.model.named_parameters()}
+        mesh = parallel.data_size(task.mesh) if task.mesh is not None else 0
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    plain = [t for i, t in enumerate(ms) if i % 16 and i > 1]
+    return {"losses": losses, "ms": ms, "median_ms": sorted(plain)[len(plain) // 2],
+            "params": params, "mesh": mesh, "syncs": syncs, "grads": grads, "states": states}
+
+
+def ddp_rank(rank: int, world: int, port: int, spec_path: str, out_dir: str) -> None:
+    """One rank of the two-rank phase (``torch.multiprocessing.spawn``):
+    join the gloo group on ``cuda:0``, run the steps and the frame-parallel
+    render (the counted main path), then on rank 0 hold the card's results
+    against the one-rank run's, profile one more step and capture the
+    kernel sites of another; → ``<out_dir>/ddp_rank<rank>.pt``."""
+    import torch
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), GF_DIST_BACKEND="gloo")
+    from torch.profiler import ProfilerActivity, profile
+
+    from geneface_tpu_torch import parallel
+    from geneface_tpu_torch.inference import radnerf_infer
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+
+    dev = parallel.initialize_distributed("cuda:0")
+    if torch.distributed.get_backend() != "gloo" or torch.distributed.get_world_size() != world:
+        raise AssertionError("the two-rank group is not gloo over two ranks")
+    spec = torch.load(spec_path, weights_only=False)
+    task = RADNeRFTask(spec["cfg"], device=dev, dtype=torch.float32)
+    task.setup_mesh()
+    task.build()
+    task.place_state()
+    syncs = []
+    timed_sync(task, syncs)
+    # the frame-parallel render keeps the float frames it gathers
+    floats, writes = [], []
+    real_gather, real_save = parallel.all_gather_slots, radnerf_infer.save_mp4
+
+    def gather(mesh, x):
+        out = real_gather(mesh, x)
+        floats.append(out.cpu())
+        return out
+
+    def save(frames, out_path, **kw):
+        writes.append(out_path)
+        return real_save(frames, out_path, **kw)
+
+    ref = torch.load(spec["ref_path"], weights_only=False)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    steps = recorded_steps(task, spec["batches"], start_from=ref["states"])
+    radnerf_infer.parallel.all_gather_slots, radnerf_infer.save_mp4 = gather, save
+    try:
+        infer = radnerf_infer.RADNeRFInfer(spec["torso_cfg"], device=dev)
+        t0 = time.perf_counter()
+        mp4 = infer.render_video(n_frames=DDP_FRAMES, out_path=spec["mp4"])
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    finally:
+        radnerf_infer.parallel.all_gather_slots, radnerf_infer.save_mp4 = real_gather, real_save
+    launches = dict(LAUNCHES)
+    occ_equal = [bool(torch.equal(*parallel.all_gather_slots(task.mesh, x.float().reshape(-1))))
+                 for x in task.occ]
+    out = {"rank": rank, "launches": launches, "losses": steps["losses"], "ms": steps["ms"],
+           "syncs": syncs, "occ_equal": occ_equal, "mp4": mp4, "writes": writes,
+           "render_s": render_s}
+    batch = spec["batches"][1]
+    if rank == 0:
+        out["loss_rel"] = [abs(a["total_loss"] - b["total_loss"]) / abs(b["total_loss"])
+                           for a, b in zip(steps["losses"], ref["losses"])]
+        out["grad_rel_l2"] = [grad_errors(g, r) for g, r in zip(steps["grads"], ref["grads"])]
+        frames = torch.cat(floats)[:DDP_FRAMES]
+        diff = (frames - ref["frames"]).abs()
+        out["frames_max_abs"], out["frames_mean_abs"] = float(diff.max()), float(diff.mean())
+        # one more step under the profiler (rank 0's kernels), then one captured
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _open_window()
+            ts = time.perf_counter()
+            task.train_step(batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - ts) * 1e3
+        kernels, stages, busy = kernel_table(
+            prof if any(us > 0 for _, us, _ in _device_events(prof)) else None)
+        out["profile"] = {"wall_ms": wall, "device_busy_ms": busy, "stages_ms": stages,
+                          "idle_share": None if busy is None else max(0.0, 1.0 - busy / wall),
+                          "top_kernels": [[k[0][:100], k[1], k[2]] for k in kernels[:12]]}
+        calls = capture_calls(lambda: task.train_step(batch))
+        sites = name_sites(calls, grid_names(task.model), "ddp")
+        out["sites"] = {s: (kernel, kind, tuple(a.cpu() if torch.is_tensor(a) else a
+                                                 for a in args), kw)
+                        for s, (kernel, kind, args, kw) in sites.items()}
+    else:
+        task.train_step(batch)  # rank 0's profiled step
+        task.train_step(batch)  # rank 0's captured step
+    torch.save(out, os.path.join(out_dir, f"ddp_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def ddp_phase(cfg, out_dir: str, path: str = "ddp") -> tuple:
+    """Data parallelism on the card: (a) the training cell's ``Trainer.fit``
+    through an NCCL group of world size 1 against two runs without a
+    process group; (b) two gloo ranks sharing ``cuda:0`` — 6 head steps
+    with a sweep and 2 lip steps, each step started from the one-rank
+    run's parameters and held against that run's step on the card, the
+    all-reduce timed; (c) ``render_video`` of 4 torso
+    frames split over the two ranks against the one-process render; →
+    (record, launches, sites)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from geneface_tpu_torch.inference import RADNeRFInfer
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+
+    root = os.path.join(os.path.dirname(cfg["work_dir"]), "ddp")
+    shutil.rmtree(root, ignore_errors=True)  # the fits would resume a run left here
+    os.makedirs(root)
+    # (a) NCCL at world size 1 against the plain run, each step from the
+    # plain run's state, and a second plain run so started: the spread
+    fits = {"plain_a": ddp_fit(cfg, os.path.join(root, "plain_a"), nccl=False)}
+    states = fits["plain_a"].pop("states")
+    for k in ("plain_b", "nccl"):
+        fits[k] = ddp_fit(cfg, os.path.join(root, k), nccl=k == "nccl", start_from=states)
+        del fits[k]["states"]
+    del states
+    if fits["nccl"]["mesh"] != 1 or fits["plain_a"]["mesh"] != 0:
+        raise AssertionError(f"{path}: the NCCL run did not train on a mesh of one rank")
+
+    def spread(x, y):
+        per_grad = [grad_errors(g, r) for g, r in zip(x["grads"], y["grads"])]
+        worst = [max(e.values()) for e in per_grad]
+        flat = [torch.cat([v[n].double().reshape(-1) for n in sorted(v)])
+                for v in (x["params"], y["params"])]
+        loss = [abs(a - b) / abs(b) for a, b in zip(x["losses"], y["losses"])]
+        at = max(range(len(worst)), key=worst.__getitem__)
+        return {"loss_rel": max(loss), "grad_rel_l2": worst[at],
+                "grad_rel_l2_at": f"step {at} {max(per_grad[at], key=per_grad[at].get)}",
+                "params_rel_l2": float((flat[0] - flat[1]).norm() / flat[1].norm()),
+                "per_step": loss, "per_step_grad": worst}
+
+    def brief(d):
+        return json.dumps({k: v for k, v in d.items() if not k.startswith("per_")})
+
+    nccl_vs_plain = spread(fits["nccl"], fits["plain_a"])
+    plain_vs_plain = spread(fits["plain_b"], fits["plain_a"])
+    print(f"{path}: NCCL world size 1 vs the plain run over {TRAIN_STEPS} Trainer.fit steps, "
+          f"each from the plain run's state: {brief(nccl_vs_plain)}; a second plain run so "
+          f"started (K1's atomic order alone): {brief(plain_vs_plain)}")
+    # (b)'s bounds: loss rel 1e-3 and gradient relative L2 0.1 on every
+    # step, relative L2 0.1 of all the final parameters
+    for key, bound in (("loss_rel", 1e-3), ("grad_rel_l2", 0.1), ("params_rel_l2", 0.1)):
+        if not nccl_vs_plain[key] <= bound:
+            raise AssertionError(f"{path}: the NCCL run left the plain run's bounds: {key} "
+                                 f"{nccl_vs_plain[key]} (bound {bound}; two plain runs "
+                                 f"{plain_vs_plain[key]})")
+    nccl_ar = sorted(t for t, _ in fits["nccl"]["syncs"])
+    print(f"{path}: median ms/step NCCL world 1 {fits['nccl']['median_ms']:.3f}, plain "
+          f"{fits['plain_a']['median_ms']:.3f} / {fits['plain_b']['median_ms']:.3f} (Trainer.fit "
+          f"of the train cell; steps without a sweep, first two left out); gradient "
+          f"all-reduce {fits['nccl']['syncs'][0][1]} bytes, median "
+          f"{nccl_ar[len(nccl_ar) // 2]:.3f} ms")
+    record = {"nccl_vs_plain": nccl_vs_plain, "plain_vs_plain": plain_vs_plain,
+              "nccl_median_step_ms": fits["nccl"]["median_ms"],
+              "plain_median_step_ms": [fits["plain_a"]["median_ms"],
+                                       fits["plain_b"]["median_ms"]],
+              "nccl_allreduce": fits["nccl"]["syncs"]}
+    del fits
+
+    # (b), (c): the one-rank references on the card, then the two ranks
+    dcfg = ddp_cfg(cfg)
+    batches = ddp_batches(dcfg)
+    ref_task = RADNeRFTask(dcfg, dtype=torch.float32)
+    ref_task.build()
+    ref = recorded_steps(ref_task, batches)
+    del ref_task
+    infer = RADNeRFInfer(torso_cfg(cfg))
+    infer.prepare()
+    ref["frames"] = torch.stack([infer.render_frame(i)["rgb_map"].float().reshape(HW, HW, 3).cpu()
+                                 for i in range(DDP_FRAMES)])
+    del infer
+    ref_path, spec_path = os.path.join(root, "ref.pt"), os.path.join(root, "spec.pt")
+    torch.save(ref, ref_path)
+    torch.save({"cfg": dcfg, "batches": batches, "torso_cfg": torso_cfg(cfg),
+                "mp4": os.path.join(root, "ddp_torso.mp4"), "ref_path": ref_path}, spec_path)
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    mp.spawn(ddp_rank, args=(DDP_WORLD, free_port(), spec_path, root), nprocs=DDP_WORLD,
+             join=True)
+    spawn_s = time.time() - t0
+    ranks = [torch.load(os.path.join(root, f"ddp_rank{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+    r0 = ranks[0]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in r0["launches"]}
+    print(f"{path}: launches on the two ranks' counted steps and render "
+          + json.dumps([r["launches"] for r in ranks]))
+    if not all(launches.values()):
+        raise AssertionError(f"{path}: a kernel was not launched: {launches}")
+    if [r["launches"] for r in ranks] != [r0["launches"]] * DDP_WORLD:
+        raise AssertionError(f"{path}: the ranks launched different kernels")
+    worst = {s: max(e.values()) for s, e in enumerate(r0["grad_rel_l2"])}
+    print(f"{path}: two gloo ranks on cuda:0 vs one rank (float32 MLPs, as the train "
+          "phase's check; each step from the one-rank run's parameters), per step: loss rel "
+          + json.dumps([f"{x:.3e}" for x in r0["loss_rel"]]) + ", worst gradient rel L2 "
+          + json.dumps({s: f"{w:.3e} ({max(e, key=e.get)})"
+                        for s, (w, e) in enumerate(zip(worst.values(), r0["grad_rel_l2"]))}))
+    lips = [i for i, x in enumerate(r0["losses"]) if "lpips_loss" in x]
+    sweeps = [i for i, x in enumerate(r0["losses"]) if x["occupancy_sweep"]]
+    if lips != list(range(DDP_HEAD_STEPS, DDP_HEAD_STEPS + DDP_LIP_STEPS)) or sweeps != [0]:
+        raise AssertionError(f"{path}: lip steps {lips}, sweeps {sweeps}")
+    if max(r0["loss_rel"]) > 1e-3 or max(worst.values()) > 0.1:
+        raise AssertionError(f"{path}: the two-rank steps left the one-rank run's bounds")
+    if not all(all(r["occ_equal"]) for r in ranks):
+        raise AssertionError(f"{path}: the occupancy grids differ across the ranks")
+    if r0["losses"] != ranks[1]["losses"]:
+        raise AssertionError(f"{path}: the ranks report different step metrics")
+    ar = sorted(t for t, _ in r0["syncs"])
+    head = [t for i, t in enumerate(r0["ms"]) if 1 < i < DDP_HEAD_STEPS]
+    ref_head = [t for i, t in enumerate(ref["ms"]) if 1 < i < DDP_HEAD_STEPS]
+    prof = r0["profile"]
+    print(f"{path}: gradient all-reduce {r0['syncs'][0][1]} bytes per step, median "
+          f"{ar[len(ar) // 2]:.3f} ms (gloo through the host); median ms/step "
+          f"{sorted(head)[len(head) // 2]:.3f} on two ranks ({TRAIN_RAYS // DDP_WORLD} rays "
+          f"each) vs {sorted(ref_head)[len(ref_head) // 2]:.3f} on one (steps 2-"
+          f"{DDP_HEAD_STEPS - 1}); a profiled step: rank 0's kernels "
+          f"{fmt_ms(prof['device_busy_ms'], ' ms')} of {prof['wall_ms']:.3f} ms wall (idle "
+          f"share {fmt_ms(prof['idle_share'])}); spawn to end {spawn_s:.1f} s")
+    if not (r0["frames_max_abs"] <= 1e-3 and r0["frames_mean_abs"] <= 1e-6):
+        raise AssertionError(f"{path}: frame-parallel frames vs one process: max abs "
+                             f"{r0['frames_max_abs']}, mean {r0['frames_mean_abs']}")
+    if [len(r["writes"]) for r in ranks] != [1] + [0] * (DDP_WORLD - 1) or \
+            not os.path.exists(r0["mp4"]):
+        raise AssertionError(f"{path}: the mp4 was not written once by rank 0")
+    print(f"{path}: render_video of {DDP_FRAMES} torso frames split over {DDP_WORLD} ranks "
+          f"in {r0['render_s']:.3f} s vs one process: max abs {r0['frames_max_abs']:.3e}, "
+          f"mean abs {r0['frames_mean_abs']:.3e}; the mp4 written once, by rank 0")
+    record.update({
+        "two_rank_loss_rel": r0["loss_rel"], "two_rank_worst_grad_rel_l2": worst,
+        "two_rank_step_ms": r0["ms"], "one_rank_step_ms": ref["ms"],
+        "allreduce": r0["syncs"], "profile": prof, "frames_max_abs": r0["frames_max_abs"],
+        "frames_mean_abs": r0["frames_mean_abs"], "render_s": r0["render_s"],
+        "launches_by_rank": [r["launches"] for r in ranks], "spawn_s": spawn_s,
+    })
+    sites = {s: (kernel, kind, tuple(a.cuda() if torch.is_tensor(a) else a for a in args), kw)
+             for s, (kernel, kind, args, kw) in r0["sites"].items()}
     return record, launches, sites
 
 
@@ -2430,6 +2893,8 @@ def import_train_phase(cfg, out_dir: str, path: str = "import_train") -> tuple:
     print(f"{path}: sweep alone {sweep:.3f} ms (CUDA events, one unprofiled sweep)")
     record.update(profile=prof, sweep_ms=sweep,
                   grad_check=check_grads_vs_cpu(task, next(batches), path))
+    if path == "train":
+        record["data_ms"] = data_time(task.cfg, path)
     grids = grid_names(task.model)
     sites = name_sites(capture_calls(lambda: task.train_step(next(batches))), grids, path)
     saved_step = task._step
@@ -3833,6 +4298,7 @@ def main() -> int:
     try:
         cfg = write_scene(root, HW, N_FRAMES)
         phases = [("serve", serve_phase, cfg), ("train", train_phase, cfg),
+                  ("ddp", ddp_phase, cfg),
                   ("torso_serve", serve_phase, torso_cfg(cfg)),
                   ("torso_train", train_phase, torso_cfg(cfg)),
                   ("audio_serve", audio_serve_phase, torso_cfg(cfg)),

@@ -3,14 +3,16 @@
 Audio2Motion VAE, the post-net, the LLE projection; serving and training),
 datagen (a person's video to the dataset the head trains on), the vanilla
 NeRF, the ASR conditions (DeepSpeech and esperanto windows from a wav, the
-streaming ASR) and audio2pose (training and the pose rollout).
+streaming ASR), audio2pose (training and the pose rollout), data
+parallelism over ranks (``parallel/``) and the native host batch loader
+(``native/``).
 
 The JAX package ``geneface_tpu`` stays the reference; this package mirrors
 its layout (``ops/``, ``models/``, ``inference/``, ``data/``, ``datagen/``,
-``utils/``, ``config/``) and loads the same pickled checkpoints. It imports
-``torch`` and ``numpy`` only — never ``jax``/``flax`` and nothing of
-``geneface_tpu`` — and keeps its own copies of the framework-free helpers
-it needs.
+``utils/``, ``config/``, ``parallel/``, ``native/``) and loads the same
+pickled checkpoints. It imports ``torch`` and ``numpy`` only — never
+``jax``/``flax`` and nothing of ``geneface_tpu`` — and keeps its own
+copies of the framework-free helpers it needs.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 Every hand-written CUDA kernel sits behind a wrapper that launches it for

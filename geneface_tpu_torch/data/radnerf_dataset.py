@@ -10,9 +10,14 @@ the device, as the JAX package's default ``device_rays`` does), one frame
 per step in a shuffled, prefetched epoch order. While ``finetune_lip_flag``
 is set (the lip fine-tune phase), a training item is instead the
 ``lip_patch_size``² square patch centred on the frame's lip rect (clipped
-into the frame), row-major, marked ``is_lip_patch``. The native C++ batch
-loader of the JAX package is not ported: the numpy path gives the same
-batches.
+into the frame), row-major, marked ``is_lip_patch``.
+
+A training dataset gathers the sampled pixels with the native C++ loader
+(:class:`~geneface_tpu_torch.native.NativeBatchLoader`: uint8 frame planes
+built once, the torso composited over the background in fixed point), as
+the JAX package does by default; ``native_loader: false`` chooses the numpy
+path (the float composite rounded to uint8, within one level of the native
+one). A failed native build raises: nothing falls back silently.
 """
 
 from __future__ import annotations
@@ -137,6 +142,22 @@ class RADNeRFDataset:
             raise NotImplementedError(cond_type)
         self.lips_rects = [self._lip_rect(s) for s in self.samples]
         self.finetune_lip_flag = False
+        self.native_loader = (self._build_native_loader()
+                              if self.training and cfg.get("native_loader", True) else None)
+
+    def _build_native_loader(self):
+        """The frames as uint8 planes ([T, HW, 3] ground truth, [T, HW, 3|4]
+        torso, [HW, 3] background) behind a native loader."""
+        from geneface_tpu_torch.native import NativeBatchLoader
+
+        def u8(a):
+            a = np.asarray(a)
+            return a if a.dtype == np.uint8 else _to_u8(a)
+
+        HW = self.H * self.W
+        gt = np.stack([u8(s["gt_img"]).reshape(HW, -1)[:, :3] for s in self.samples])
+        torso = np.stack([u8(s["torso_img"]).reshape(HW, -1) for s in self.samples])
+        return NativeBatchLoader(gt, torso, u8(self.bg_img).reshape(HW, 3), n_threads=2)
 
     def _lip_rect(self, sample) -> tuple:
         """(xmin, xmax, ymin, ymax) of the lips: the sample's ``lip_rect``,
@@ -232,11 +253,15 @@ class RADNeRFDataset:
                 self.poses[idx], self.intrinsics, self.H, self.W,
                 n_rays=cfg.get("n_rays", 65536), rng=self.rng,
             )["inds"]
-        gt = self._gt(sample)
         # a light batch: rays, background coords and the face mask are
         # rebuilt on the device from the pixel indices
         out["inds"] = inds.astype(np.int32)
         out["face_rect"] = np.asarray(sample["face_rect"], np.float32)
+        if self.native_loader is not None:
+            (out["gt_img_u8"], out["bg_img_u8"],
+             out["bg_torso_img_u8"]) = self.native_loader.gather(idx, out["inds"])
+            return out
+        gt = self._gt(sample)
         out["gt_img_u8"] = _to_u8(gt.reshape(-1, 3)[inds])
         out["bg_img_u8"] = _to_u8(self.bg_img.reshape(-1, 3)[inds])
         out["bg_torso_img_u8"] = _to_u8(self._bg_torso(sample).reshape(-1, 3)[inds])

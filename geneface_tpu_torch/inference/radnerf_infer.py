@@ -22,7 +22,7 @@ import subprocess
 import numpy as np
 import torch
 
-from geneface_tpu_torch import resolve_device
+from geneface_tpu_torch import parallel, resolve_device
 from geneface_tpu_torch.convert import flax_to_state_dict
 from geneface_tpu_torch.data.radnerf_dataset import RADNeRFDataset, get_cond_window
 from geneface_tpu_torch.inference.landmark_postprocess import (
@@ -245,22 +245,46 @@ class RADNeRFInfer:
         return out
 
     def render_frames(self, n_frames: int | None = None,
-                      idexp_lm3d: np.ndarray | None = None) -> np.ndarray:
+                      idexp_lm3d: np.ndarray | None = None, mesh=None) -> np.ndarray:
         """Render frames driven by ``idexp_lm3d`` (or the dataset's own
-        conditions) over the dataset poses (looped) → uint8 [T, H, W, 3]."""
+        conditions) over the dataset poses (looped) → uint8 [T, H, W, 3].
+        With a ``mesh`` the frames split over its data axis (the JAX
+        renderer's frame sharding): in each group of ``n`` frames rank
+        ``k`` renders frame ``lo + k``, the last group padded with the last
+        frame, and a slot all-reduce brings every frame to every rank."""
         ds = self.dataset
         conds = self.conds_from_lm3d(idexp_lm3d) if idexp_lm3d is not None else ds.conds
         self.prepare()
+        T = n_frames or len(conds)
+        n, r = parallel.data_size(mesh), parallel.data_rank(mesh)
         frames = []
-        for i in range(n_frames or len(conds)):
-            rgb = self.render_frame(i, conds)["rgb_map"].reshape(ds.H, ds.W, 3)
-            frames.append((rgb.clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy())
+        for lo in range(0, T, n):
+            rgb = self.render_frame(min(lo + r, T - 1), conds)["rgb_map"]
+            group = parallel.all_gather_slots(mesh, rgb.float().reshape(ds.H, ds.W, 3))
+            frames.extend(_to_u8(group[k]) for k in range(min(n, T - lo)))
         return np.stack(frames)
 
     def render_video(self, idexp_lm3d: np.ndarray | None = None,
                      out_path: str = "infer_out/pred_video/out.mp4",
                      audio_path: str | None = None,
-                     n_frames: int | None = None) -> str:
-        """Render frames, then mux them (and the audio) into an mp4."""
-        frames = self.render_frames(n_frames, idexp_lm3d)
+                     n_frames: int | None = None,
+                     frame_parallel: bool | None = None) -> str:
+        """Render frames, then mux them (and the audio) into an mp4.
+        ``frame_parallel`` (default: on when the process group has more
+        than one rank and there are at least as many frames) splits the
+        frames over the ranks (:meth:`render_frames` with a mesh). In a
+        process group rank 0 alone writes the mp4; every rank returns its
+        path."""
+        world = parallel.world_size()
+        if frame_parallel is None:
+            T = n_frames or (len(idexp_lm3d) if idexp_lm3d is not None else len(self.dataset.conds))
+            frame_parallel = world > 1 and T >= world
+        frames = self.render_frames(n_frames, idexp_lm3d,
+                                    mesh=parallel.make_mesh() if frame_parallel else None)
+        if parallel.rank() != 0:
+            return out_path
         return save_mp4(frames, out_path, audio_path=audio_path)
+
+
+def _to_u8(rgb: torch.Tensor) -> np.ndarray:
+    return (rgb.clamp(0.0, 1.0) * 255).to(torch.uint8).cpu().numpy()

@@ -31,6 +31,7 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from geneface_tpu_torch.models.radnerf.radnerf_torso import sample_torso_occupancy
@@ -268,6 +269,7 @@ def render_rays_radnerf(
     ray_capacity: int | None = None,
     cull_kdop: tuple | None = None,
     noises: torch.Tensor | None = None,
+    group=None,
 ) -> dict:
     """March + field eval + composite + background.
 
@@ -285,6 +287,12 @@ def render_rays_radnerf(
     Rays carry no gradient. Returns rgb_map [N, 3], depth_map, weights_sum,
     ambient_sum [N], ``n_samples`` [rendered rays] and ``march_span`` (the
     lattice steps any ray needed, the signal that retunes ``lattice_K``).
+
+    ``group`` (a training step split over ranks): these rays are this
+    rank's block of a global batch of ``N × ranks`` rays; the sample budget
+    is the global batch's, waterfilled over all ranks
+    (:func:`waterfill_valid`), and this rank's compact buffer holds what it
+    keeps, padded to a multiple of 1,024 slots (one host read).
     """
     N = rays_o.shape[0]
     dev = rays_o.device
@@ -354,8 +362,13 @@ def render_rays_radnerf(
         S = march.ts.shape[-1]
         # compact-eval capacity: the sample budget, padded to a multiple of
         # 1024 and never beyond the full slab
-        capacity = min(int(-(-N * float(mean_samples_per_ray) // 1024) * 1024), N * S)
-        plan = make_compact_plan(waterfill_valid(march.valid, capacity), capacity)
+        ranks = 1 if group is None else dist.get_world_size(group)
+        capacity = min(int(-(-N * ranks * float(mean_samples_per_ray) // 1024) * 1024),
+                       N * ranks * S)
+        keep = waterfill_valid(march.valid, capacity, group)
+        if ranks > 1:
+            capacity = min(max(-(-int(keep.sum()) // 1024), 1) * 1024, N * S)
+        plan = make_compact_plan(keep, capacity)
         # ONE [Mc, 8] record gather for everything per sample
         ro = rays_o.float()[:, None, :]
         rd = rays_d.float()[:, None, :]

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "CompactPlan",
@@ -32,19 +33,36 @@ class CompactPlan(NamedTuple):
     is_start: torch.Tensor  # [Mc] bool: first slot of its segment
 
 
-def waterfill_valid(valid: torch.Tensor, capacity: int) -> torch.Tensor:
+def waterfill_valid(valid: torch.Tensor, capacity: int, group=None) -> torch.Tensor:
     """Fit a prefix-dense ``[N, S]`` mask into ``capacity`` slots: grant every
     ray up to the largest level ``q*`` with ``sum_i min(n_i, q*) <= capacity``
     plus one partial level to the first remaining rays. Unchanged when
-    ``capacity >= total``; the result stays prefix-dense."""
+    ``capacity >= total``; the result stays prefix-dense.
+
+    With a process ``group`` the ranks' masks are the row blocks of one
+    global mask, in rank order, and ``capacity`` is the global budget: the
+    level counts are all-reduced (one ``q*`` for all rays) and each rank's
+    partial-level ranks start after the lower ranks' (an all-reduce of one
+    slot per rank), so every rank keeps its rows of the whole mask's
+    waterfill, as under XLA's SPMD partitioning of the JAX function. One
+    rank gives the function without a group."""
     N, S = valid.shape
     level_counts = valid.sum(dim=0)  # [S] rays with a sample at each slot
+    if group is not None:
+        dist.all_reduce(level_counts, group=group)
     summin = torch.cumsum(level_counts, dim=0)  # summin[q-1] = sum_i min(n_i, q)
     qstar = (summin <= capacity).sum()
     base = torch.where(qstar > 0, summin[(qstar - 1).clamp(min=0)], 0)
     rem = (capacity - base).clamp(min=0)
     has_extra = valid[:, qstar.clamp(max=S - 1)] & (qstar < S)
-    extra = has_extra & (torch.cumsum(has_extra.to(torch.int64), dim=0) <= rem)
+    rank_of_extra = torch.cumsum(has_extra.to(torch.int64), dim=0)
+    if group is not None:
+        slots = torch.zeros(dist.get_world_size(group), dtype=torch.int64, device=valid.device)
+        r = dist.get_rank(group)
+        slots[r] = has_extra.sum()
+        dist.all_reduce(slots, group=group)
+        rank_of_extra = rank_of_extra + slots[:r].sum()
+    extra = has_extra & (rank_of_extra <= rem)
     slot = torch.arange(S, device=valid.device)[None, :]
     keep = (slot < qstar) | ((slot == qstar) & extra[:, None])
     return valid & keep

@@ -24,6 +24,11 @@ and trains the torso field at the canonical pose on the composite
 ``head · last_weight_torso + rgb_fg_torso``. As in the JAX package (its
 documented divergence from the reference), the lm3d torso is conditioned on
 its own lm3d windows, not on DeepSpeech.
+
+Over a mesh of ranks each rank renders its rows of ``data_batch_keys`` (the
+JAX task's per-ray leaves) with its rows of ``t_rand`` and ``u``, drawn at
+the global ray count from the shared generator; the gradients are averaged
+over the ranks before Adam and the step metrics reduced.
 """
 
 from __future__ import annotations
@@ -111,7 +116,9 @@ class Lm3dNeRFTask(Task):
     """``device`` defaults to ``cuda``; the models compute in float32."""
 
     #: the batch keys the loss reads
-    data_batch_keys = ("rays_o", "rays_d", "gt_img", "bg_img", "cond", "cond_wins")
+    batch_keys = ("rays_o", "rays_d", "gt_img", "bg_img", "cond", "cond_wins")
+    #: the per-ray ones among them (the JAX task's)
+    data_batch_keys = ("rays_o", "rays_d", "gt_img", "bg_img")
 
     def __init__(self, cfg, device=None):
         super().__init__(cfg)
@@ -170,15 +177,16 @@ class Lm3dNeRFTask(Task):
     def device_batch(self, batch: dict) -> dict:
         """The loss's numpy arrays → float32 tensors on the device."""
         return {k: torch.as_tensor(np.asarray(batch[k], np.float32), device=self.device)
-                for k in self.data_batch_keys}
+                for k in self.batch_keys}
 
     def draw_noise(self, n_rays: int) -> dict:
-        """The step's jitter ``t_rand`` and importance draws ``u``, from the
-        task's generator."""
+        """The step's jitter ``t_rand`` and importance draws ``u`` for
+        ``n_rays`` global rays, from the task's generator → this rank's
+        rows."""
         kw = self.render_kwargs()
         dev, g = self.device, self.generator
-        return {"t_rand": torch.rand(n_rays, kw["n_samples"], generator=g, device=dev),
-                "u": torch.rand(n_rays, kw["n_importance"], generator=g, device=dev)}
+        return {k: self.local_rows(torch.rand(n_rays, kw[n], generator=g, device=dev))
+                for k, n in (("t_rand", "n_samples"), ("u", "n_importance"))}
 
     # -------------------------------------------------------------- loss ----
     def loss_fn(self, batch: dict, noise: dict | None, with_att: bool):
@@ -211,13 +219,20 @@ class Lm3dNeRFTask(Task):
 
     def train_step(self, batch: dict) -> dict:
         """One update → the step's losses (0-d tensors on the device)."""
-        dbatch = self.device_batch(batch)
-        noise = self.draw_noise(dbatch["rays_o"].shape[0])
+        local, n_rays = self.split_batch(batch, "rays_o")
+        dbatch = self.device_batch(local)
+        noise = self.draw_noise(n_rays)
         self.optimizer.zero_grad(set_to_none=True)
         total, losses = self.loss_fn(dbatch, noise, self.with_att())
         total.backward()
+        self.sync_grads(self.trainable().parameters())
         self.optimizer.step()
         self._step += 1
+        if self.mesh is not None:
+            losses = self.reduce_metrics(losses)
+            for k in ("psnr", "com_psnr"):
+                if k in losses:
+                    losses[k] = psnr(losses["mse_loss" if k == "psnr" else "com_mse_loss"])
         return {k: v.detach() for k, v in losses.items()}
 
     @torch.no_grad()
@@ -288,8 +303,9 @@ class Lm3dNeRFTorsoTask(Lm3dNeRFTask):
     checkpoint, read non-strictly; without it the head stays at its seeded
     init)."""
 
-    data_batch_keys = ("rays_o", "rays_d", "rays_o_head", "rays_d_head", "gt_img", "bg_img",
-                       "cond", "cond_wins", "euler", "trans")
+    batch_keys = ("rays_o", "rays_d", "rays_o_head", "rays_d_head", "gt_img", "bg_img",
+                  "cond", "cond_wins", "euler", "trans")
+    data_batch_keys = ("rays_o", "rays_d", "rays_o_head", "rays_d_head", "gt_img", "bg_img")
 
     def make_torso_model(self) -> torch.nn.Module:
         cfg = self.cfg

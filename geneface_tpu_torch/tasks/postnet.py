@@ -26,6 +26,19 @@ conditioned on that VAE's own pitch embedding of the 2×-downsampled f0.
 post-net → the lm3d ``.npy`` (``infer_out_npy_name``) that the RAD-NeRF
 ``--infer`` renders from; ``infer_hubert_npy`` (and ``infer_f0_npy`` for the
 pitch variant) give pre-extracted features instead of the live HuBERT.
+
+Over a mesh of ranks (the JAX task's ``data_batch_keys``) each rank keeps
+its clips of the LRS3 and of the person batch when the clip count divides
+by the data size (a batch that does not stays whole on every rank), with
+its rows of the VAE's prior noise, drawn at the global batch. The masked
+losses divide by the global mask sums (all-reduced) and count ``ranks ×``
+this rank's numerator, so that the gradient average is the global batch's
+gradient; the SyncNet term mines its clips from the whole refinement
+(every rank mines the same clips from the same ``np_rng`` and gathers the
+refined rows, :func:`~geneface_tpu_torch.parallel.all_gather_rows`). The
+discriminator step follows the same rules. Every rank validates, so the
+shared random streams (clip mining, the person batches, the noise) stay
+the same on every rank.
 """
 
 from __future__ import annotations
@@ -34,7 +47,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geneface_tpu_torch import resolve_device
+from geneface_tpu_torch import parallel, resolve_device
 from geneface_tpu_torch.convert import flax_variables, load_flax_variables
 from geneface_tpu_torch.data.lrs3_dataset import LRS3SeqDataset
 from geneface_tpu_torch.inference.audio2motion_infer import truncate16
@@ -67,6 +80,9 @@ def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 class PostnetAdvSyncTask(Task):
+    #: the clip axis, split over the mesh when it divides (the JAX task's)
+    data_batch_keys = ("hubert", "y", "y_mask", "f0")
+
     def __init__(self, cfg, device=None):
         super().__init__(cfg)
         self.device = resolve_device(device)
@@ -112,10 +128,11 @@ class PostnetAdvSyncTask(Task):
     def keys(self) -> tuple:
         return ("hubert", "y", "y_mask") + (("f0",) if self.pitch else ())
 
-    def noise(self, dev: dict) -> torch.Tensor:
-        """The frozen VAE's prior noise ``[B, T_sqz, 16]`` for a batch."""
+    def noise(self, dev: dict, rows: int | None = None) -> torch.Tensor:
+        """The frozen VAE's prior noise ``[B, T_sqz, 16]`` for a batch (of
+        ``rows`` clips: the global batch's)."""
         B, T = dev["y_mask"].shape
-        return torch.randn(self.vae.noise_shape(B, T), generator=self.generator,
+        return torch.randn(self.vae.noise_shape(rows or B, T), generator=self.generator,
                            device=self.device)
 
     @torch.no_grad()
@@ -130,26 +147,50 @@ class PostnetAdvSyncTask(Task):
             return self.model(raw, pitch)
         return self.model(raw)
 
-    def prep(self, batch: dict) -> tuple:
+    def prep(self, batch: dict, split: bool = True) -> tuple:
         """A host LRS3 batch → (its tensors on the device, the next person
-        batch's, the mined clips' indices)."""
+        batch's, the mined clips' indices, mined from the whole batch, and
+        the two batches' global clip counts); over a mesh and with
+        ``split``, this rank's clips of each batch."""
         keys = self.keys()
-        person = to_device(next(self._person_iter), keys, self.device)
+        person = next(self._person_iter)
         y_lens = batch["y_mask"].sum(-1).astype(int)
         ii, ms, mi, mel_s, _ = mine_sync_clips(y_lens, self.clip_batch, self.np_rng, infer=True)
-        return to_device(batch, keys, self.device), person, (ii, ms, mi, mel_s)
+        rows = (len(batch["y"]), len(person["y"]))
+        if split:
+            batch, person = self.place_batch(batch), self.place_batch(person)
+        return (to_device(batch, keys, self.device), to_device(person, keys, self.device),
+                (ii, ms, mi, mel_s), rows)
+
+    def _split(self, global_rows: int, local_rows: int) -> tuple:
+        """(the factor of this rank's numerators, the all-reduce of a
+        denominator) of a batch with ``global_rows`` clips of which this
+        rank holds ``local_rows``."""
+        if self.mesh is None or global_rows == local_rows:
+            return 1, lambda x: x
+        group = self.data_group()
+
+        def total(x):
+            x = x.clone()
+            torch.distributed.all_reduce(x, group=group)
+            return x
+
+        return parallel.data_size(self.mesh), total
 
     def gen_loss(self, lrs3: dict, person: dict, clip_idx: tuple, noises: tuple,
-                 adv_on: float) -> tuple:
+                 adv_on: float, rows: tuple | None = None) -> tuple:
         """→ (total, losses, the detached LRS3 refinement); ``noises`` the
-        VAE's prior noise of the LRS3 and of the person batch."""
+        VAE's prior noise of the LRS3 and of the person batch; ``rows``
+        the two batches' global clip counts (split over ranks)."""
         cfg = self.cfg
+        k_p, total_p = self._split(rows[1], len(person["y"])) if rows else (1, lambda x: x)
+        k_l, total_l = self._split(rows[0], len(lrs3["y"])) if rows else (1, lambda x: x)
         raw_lrs3 = self.vae_sample(lrs3, noises[0])
         raw_person = self.vae_sample(person, noises[1])
         with record_function("gf::postnet_gen"):
             pmask = person["y_mask"]
             refine_person = self.refine(raw_person, person) * pmask[..., None]
-            denom = torch.clamp(pmask.sum(), min=1.0) * 204
+            denom = torch.clamp(total_p(pmask.sum()), min=1.0) * 204 / k_p
             mse = ((person["y"] - refine_person) ** 2).sum() / denom
             d_pred = refine_person[:, 1:] - refine_person[:, :-1]
             d_gt = person["y"][:, 1:] - person["y"][:, :-1]
@@ -158,10 +199,13 @@ class PostnetAdvSyncTask(Task):
             continuity = ((cont_err**2).sum() + (init_err**2).sum()) / denom
             refine_lrs3 = self.refine(raw_lrs3, lrs3)
             reg = (((refine_lrs3 - raw_lrs3) * lrs3["y_mask"][..., None]) ** 2).sum() / (
-                torch.clamp(lrs3["y_mask"].sum(), min=1.0))
-            sync = sync_of(self.syncnet, refine_lrs3, lrs3["hubert"], clip_idx)
+                torch.clamp(total_l(lrs3["y_mask"].sum()), min=1.0) / k_l)
+            whole = (lambda x: parallel.all_gather_rows(self.mesh, x)) if k_l > 1 else (lambda x: x)
+            sync = sync_of(self.syncnet, whole(refine_lrs3), whole(lrs3["hubert"]), clip_idx)
             v, fmask = self.disc(refine_lrs3)
-            adv = _masked_mean((1.0 - v[..., 0]) ** 2, fmask.float())
+            fmask = fmask.float()
+            adv = ((1.0 - v[..., 0]) ** 2 * fmask).sum() / (
+                torch.clamp(total_l(fmask.sum()), min=1.0) / k_l)
             total = (cfg.get("postnet_lambda_mse", 0.05) * mse
                      + cfg.get("postnet_lambda_reg", 0.0) * reg
                      + cfg.get("postnet_lambda_continuity", 0.0) * continuity
@@ -171,19 +215,30 @@ class PostnetAdvSyncTask(Task):
                   "total_loss": total}
         return total, losses, refine_lrs3.detach()
 
-    def disc_loss(self, fake: torch.Tensor, real: torch.Tensor, real_mask: torch.Tensor) -> tuple:
-        """LSGAN: the refinement to 0, the person's landmarks to 1."""
+    def disc_loss(self, fake: torch.Tensor, real: torch.Tensor, real_mask: torch.Tensor,
+                  rows: tuple | None = None) -> tuple:
+        """LSGAN: the refinement to 0, the person's landmarks to 1;
+        ``rows`` the two batches' global clip counts (split over ranks)."""
+        k_f, total_f = self._split(rows[0], len(fake)) if rows else (1, lambda x: x)
+        k_r, total_r = self._split(rows[1], len(real)) if rows else (1, lambda x: x)
+
+        def mean_f(x, m):
+            return (x * m).sum() / (torch.clamp(total_f(m.sum()), min=1.0) / k_f)
+
+        def mean_r(x, m):
+            return (x * m).sum() / (torch.clamp(total_r(m.sum()), min=1.0) / k_r)
+
         with record_function("gf::postnet_disc"):
             v_fake, m_fake = self.disc(fake)
             v_real, m_real = self.disc(real)
             m_fake = m_fake.float()
             m_real = m_real.float() * real_mask
-            fake_loss = _masked_mean(v_fake[..., 0] ** 2, m_fake)
-            true_loss = _masked_mean((v_real[..., 0] - 1.0) ** 2, m_real)
+            fake_loss = mean_f(v_fake[..., 0] ** 2, m_fake)
+            true_loss = mean_r((v_real[..., 0] - 1.0) ** 2, m_real)
         return fake_loss + true_loss, {
             "disc_fake_loss": fake_loss, "disc_true_loss": true_loss,
-            "disc_neg_conf": _masked_mean(v_fake[..., 0], m_fake),
-            "disc_pos_conf": _masked_mean(v_real[..., 0], m_real),
+            "disc_neg_conf": mean_f(v_fake[..., 0].detach(), m_fake),
+            "disc_pos_conf": mean_r(v_real[..., 0].detach(), m_real),
         }
 
     def adv_on(self) -> float:
@@ -193,26 +248,29 @@ class PostnetAdvSyncTask(Task):
         return self._step % self.cfg.get("postnet_disc_interval", 1) == 0
 
     def train_step(self, batch: dict) -> dict:
-        lrs3, person, clip_idx = self.prep(batch)
-        noises = (self.noise(lrs3), self.noise(person))
+        lrs3, person, clip_idx, rows = self.prep(batch)
+        # the prior noise at the global batches' shapes, then this rank's rows
+        noises = tuple(self.local_rows(self.noise(d, r)) for d, r in zip((lrs3, person), rows))
         self.gen_opt.zero_grad(set_to_none=True)
-        total, losses, pred = self.gen_loss(lrs3, person, clip_idx, noises, self.adv_on())
+        total, losses, pred = self.gen_loss(lrs3, person, clip_idx, noises, self.adv_on(), rows)
         total.backward()
+        self.sync_grads(self.model.parameters())
         self.gen_opt.step()
         if self.disc_due():
             self.disc_opt.zero_grad(set_to_none=True)
-            d_total, d_losses = self.disc_loss(pred, person["y"], person["y_mask"])
+            d_total, d_losses = self.disc_loss(pred, person["y"], person["y_mask"], rows)
             d_total.backward()
+            self.sync_grads(self.disc.parameters())
             self.disc_opt.step()
             losses.update(d_losses)
         self._step += 1
-        return {k: v.detach() for k, v in losses.items()}
+        return self.reduce_metrics({k: v.detach() for k, v in losses.items()})
 
     @torch.no_grad()
     def val_step(self, batch: dict) -> dict:
         """The person batch's MSE (the LRS3 batch only draws its clips, as
         the JAX task does)."""
-        _, person, _ = self.prep(batch)
+        _, person, _, _ = self.prep(batch, split=False)
         refined = self.refine(self.vae_sample(person, self.noise(person)), person)
         denom = torch.clamp(person["y_mask"].sum(), min=1.0) * 204
         mse = ((person["y"] - refined * person["y_mask"][..., None]) ** 2).sum() / denom

@@ -27,9 +27,20 @@ trainer's. After each logged validation it renders one full val frame
 Supported: every ``grid_backend`` (``fused``, ``reference``, ``block``);
 ``march_backend: lattice`` (the lattice march and the compaction) and
 ``walk`` (the walk, then the compaction or, with ``mean_samples_per_ray:
-0``, the padded slab — the GeneFace import config's route); one device.
-Noise comes from the task's seeded ``torch.Generator`` on the device and
-reaches the renderer and the sweep as tensors.
+0``, the padded slab — the GeneFace import config's route). Noise comes
+from the task's seeded ``torch.Generator`` on the device and reaches the
+renderer and the sweep as tensors.
+
+Over a mesh of ranks (:meth:`Task.setup_mesh`) a step is the global
+batch's step, as under the JAX task's sharded ``train_step``: each rank
+renders its rows of ``data_batch_keys`` with its rows of the march jitter,
+which is drawn at the global ray count from the shared generator; the
+sample budget is waterfilled over all ranks; the lip step's LPIPS sees the
+whole patch (:func:`~geneface_tpu_torch.parallel.all_gather_rows`); the
+gradients are averaged over the ranks before Adam and the metrics reduced
+(``march_span`` by its maximum), so every rank retunes the same buckets.
+Every rank runs the occupancy sweep with the same noise, then takes rank
+0's grids.
 """
 
 from __future__ import annotations
@@ -40,7 +51,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geneface_tpu_torch import resolve_device
+from geneface_tpu_torch import parallel, resolve_device
 from geneface_tpu_torch.convert import flax_to_state_dict, lpips_state_dict, state_dict_to_flax
 from geneface_tpu_torch.data.radnerf_dataset import RADNeRFDataset, get_cond_window
 from geneface_tpu_torch.models.lpips import LPIPS, lpips_params_from_npz
@@ -70,6 +81,14 @@ class RADNeRFTask(Task):
     #: of the JAX task
     SPR_BUCKETS = (2.0, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0, 10.0, 12.0, 16.0)
     LATK_BUCKETS = (16, 24, 32, 48, 64, 96, 128)
+
+    #: the light batch's per-ray leaves (the JAX task's list; the port's
+    #: batch carries the indices and the uint8 pixels)
+    data_batch_keys = (
+        "rays_o", "rays_d", "gt_img", "bg_img", "bg_torso_img",
+        "bg_coords", "face_mask",
+        "inds", "gt_img_u8", "bg_img_u8", "bg_torso_img_u8",
+    )
 
     def __init__(self, cfg, device=None, dtype: torch.dtype = torch.bfloat16):
         super().__init__(cfg)
@@ -178,6 +197,20 @@ class RADNeRFTask(Task):
         self.occ = occ
         self._occ_view = occupancy_view(occ.occ_grid, self.bound)
 
+    def state_tensors(self) -> list:
+        return super().state_tensors() + list(self.occ)
+
+    def place_state(self) -> None:
+        super().place_state()
+        self.set_occupancy(self.occ)
+
+    def take_rank0_occupancy(self) -> None:
+        """Every rank swept with the same noise; rank 0's grids, density
+        EMA and mean density win, so the ranks cannot drift apart."""
+        if self.mesh is not None:
+            parallel.broadcast_tensors(self.mesh, list(self.occ))
+            self.set_occupancy(self.occ)
+
     # ------------------------------------------------------------- batch ----
     def device_batch(self, batch: dict, step: int) -> dict:
         """Numpy light batch → tensors on the device, with the rays,
@@ -241,7 +274,7 @@ class RADNeRFTask(Task):
         out = render_rays_radnerf(
             field_fn, batch["rays_o"], batch["rays_d"], self._occ_view,
             bg_color=batch["bg_torso_img"], noises=noises if train else None,
-            **self.render_kwargs(lip),
+            group=self.data_group() if train else None, **self.render_kwargs(lip),
         )
         pred, gt = out["rgb_map"], batch["gt_img"]
         mse = torch.mean((pred - gt) ** 2)
@@ -262,9 +295,13 @@ class RADNeRFTask(Task):
             )
             if lip and self.lpips is not None:
                 # the lip patch's rays are its P×P pixels in row-major order
+                # (split over ranks: every rank scores the whole patch)
                 P = int(cfg.get("lip_patch_size", 64))
                 with record_function("gf::lpips"):
-                    lp = torch.mean(self.lpips(pred.reshape(1, P, P, 3), gt.reshape(1, P, P, 3)))
+                    pred_p = parallel.all_gather_rows(self.mesh, pred)
+                    gt_p = parallel.all_gather_rows(self.mesh, gt)
+                    lp = torch.mean(self.lpips(pred_p.reshape(1, P, P, 3),
+                                               gt_p.reshape(1, P, P, 3)))
                 losses["lpips_loss"] = lp
                 total = total + cfg.get("lambda_lpips_loss", 0.001) * lp
         else:
@@ -297,6 +334,7 @@ class RADNeRFTask(Task):
                 self.occ, noise, grid_size=H, bound=self.bound,
                 density_thresh=float(cfg.get("density_thresh", 10)),
             ))
+            self.take_rank0_occupancy()
         return True
 
     def maybe_retune_capacity(self, losses: dict) -> None:
@@ -326,20 +364,25 @@ class RADNeRFTask(Task):
         swept = self.maybe_update_occ()
         lip = bool(self.lpips is not None and batch.get("is_lip_patch"))
         with record_function("gf::batch"):
-            dbatch = self.device_batch(batch, self._step)
-            noises = torch.rand(
-                dbatch["rays_o"].shape[0], generator=self.generator, device=self.device
-            )
+            local, n_rays = self.split_batch(batch, "inds")
+            dbatch = self.device_batch(local, self._step)
+            # drawn at the global ray count, then this rank's rows
+            noises = self.local_rows(
+                torch.rand(n_rays, generator=self.generator, device=self.device))
         self.optimizer.zero_grad(set_to_none=True)
         total, losses = self.loss_fn(dbatch, noises, train=True, lip=lip)
         with record_function("gf::backward"):
             total.backward()
         with record_function("gf::optim"):
+            self.sync_grads(self.model.parameters())
             losses["grad_norm"] = torch.sqrt(sum(
                 (p.grad.float() ** 2).sum() for p in self.model.parameters()
                 if p.grad is not None
             ))
             self.optimizer.step()
+        if self.mesh is not None:
+            losses = self.reduce_metrics(losses, max_keys=("march_span",))
+            losses["head_psnr"] = -10.0 * torch.log10(losses["mse_loss"])
         self.maybe_retune_capacity(losses)
         self._step += 1
         if self.in_lip_phase():  # the lip and normal steps alternate

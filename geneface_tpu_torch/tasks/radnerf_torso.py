@@ -15,6 +15,11 @@ the torso nets ×1 and the torso grid ×10 (the head is frozen, see
 ``torso_occ`` and the optimizer state in the state and ``task_step`` in the
 extras; they resume as the head task's do. After each logged validation
 the task renders one full head+torso val frame and logs its PSNR.
+
+Over a mesh of ranks the step splits as the head task's does (the rays and
+the head's march jitter; ``pose`` stays whole), the torso gradients are
+averaged before Adam, and after each torso sweep every rank takes rank 0's
+torso occupancy.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from geneface_tpu_torch import parallel
 from geneface_tpu_torch.convert import flax_to_state_dict, state_dict_to_flax
 from geneface_tpu_torch.models.radnerf import (
     OccupancyState,
@@ -160,26 +166,35 @@ class RADNeRFTorsoTask(RADNeRFTask):
                 lambda xy: model.forward_torso(xy, pose6, t_ind, tables=tables)[0][:, 0],
                 self.torso_occ, jitter, grid_size=H,
             )
+            if self.mesh is not None:
+                parallel.broadcast_tensors(self.mesh, list(self.torso_occ))
         return True
+
+    def state_tensors(self) -> list:
+        return super().state_tensors() + list(self.torso_occ)
 
     def train_step(self, batch: dict) -> dict:
         """One update of the torso → the step's losses (0-d tensors)."""
         swept = self.maybe_update_occ()
         with record_function("gf::batch"):
-            dbatch = self.device_batch(batch, self._step)
-            noises = torch.rand(
-                dbatch["rays_o"].shape[0], generator=self.generator, device=self.device
-            )
+            local, n_rays = self.split_batch(batch, "inds")
+            dbatch = self.device_batch(local, self._step)
+            noises = self.local_rows(
+                torch.rand(n_rays, generator=self.generator, device=self.device))
         self.optimizer.zero_grad(set_to_none=True)
         total, losses = self.loss_fn(dbatch, noises, train=True)
         with record_function("gf::backward"):
             total.backward()
         with record_function("gf::optim"):
+            self.sync_grads(self.model.parameters())
             losses["grad_norm"] = torch.sqrt(sum(
                 (p.grad.float() ** 2).sum() for p in self.model.parameters()
                 if p.grad is not None
             ))
             self.optimizer.step()
+        if self.mesh is not None:
+            losses = self.reduce_metrics(losses)
+            losses["torso_psnr"] = -10.0 * torch.log10(losses["torso_mse_loss"])
         self._step += 1
         losses = {k: v.detach() for k, v in losses.items()}
         losses["occupancy_sweep"] = float(swept)

@@ -16,6 +16,12 @@ trains in the order its tasks load each other: SyncNet
 (``lm3d_vae_sync.yaml``, ``syncnet_work_dir``), then the post-net
 (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``,
 ``audio2motion_work_dir`` and ``syncnet_work_dir``).
+
+Data parallel: ``torchrun --nproc_per_node N -m geneface_tpu_torch.tasks.run
+...`` trains N ranks (:func:`~geneface_tpu_torch.parallel.
+initialize_distributed` joins them before the task is built: NCCL on the
+cards ``cuda:LOCAL_RANK``, gloo with ``--device cpu`` or
+``GF_DIST_BACKEND=gloo``).
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import argparse
 import os
 
 from geneface_tpu_torch.config.config import load_config
+from geneface_tpu_torch.parallel import initialize_distributed
 from geneface_tpu_torch.tasks.audio2motion import PitchContourVAESyncTask, VAESyncAudio2MotionTask
 from geneface_tpu_torch.tasks.audio2pose import Audio2PoseTask
 from geneface_tpu_torch.tasks.lm3d_nerf import (
@@ -72,15 +79,16 @@ def main(argv: list | None = None) -> int:
     ap.add_argument("--infer", action="store_true", help="run the task's inference")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
+    device = initialize_distributed(args.device)
     work_dir = os.path.join("checkpoints", args.exp_name) if args.exp_name else None
     cfg = load_config(args.config, overrides=args.hparams, work_dir=work_dir,
                       use_saved=not args.reset)
     cfg["exp_name"] = args.exp_name
     task_cls = resolve_task(cfg["task_cls"])
     if args.infer:
-        task_cls.run_inference(cfg, device=args.device)
+        task_cls.run_inference(cfg, device=device)
         return 0
-    return Trainer(task_cls(cfg, device=args.device)).fit()
+    return Trainer(task_cls(cfg, device=device)).fit()
 
 
 if __name__ == "__main__":

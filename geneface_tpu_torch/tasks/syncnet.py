@@ -118,8 +118,10 @@ def gather_clips(mouth: torch.Tensor, hubert: torch.Tensor, item_idx, mouth_star
     mrows = torch.from_numpy(clip_rows(item_idx, mouth_start, T, 5)).to(dev)
     hrows = torch.from_numpy(
         clip_rows(mel_item, 2 * np.asarray(mel_start), hubert.shape[1], 10)).to(dev)
-    mouth_clips = gather_rows(mouth.reshape(B * T, C), mrows, ("clip", "mouth"))
-    mel_clips = gather_rows(hubert.reshape(-1, D), hrows, ("clip", "hubert"))
+    # a slice of contiguous landmarks reshapes to a strided view: the
+    # gather reads a contiguous table
+    mouth_clips = gather_rows(mouth.reshape(B * T, C).contiguous(), mrows, ("clip", "mouth"))
+    mel_clips = gather_rows(hubert.reshape(-1, D).contiguous(), hrows, ("clip", "hubert"))
     return mouth_clips.reshape(-1, 5, C), mel_clips.reshape(-1, 10, D)
 
 

@@ -1,5 +1,5 @@
 """Task protocol and the training loop (port of
-``geneface_tpu/training/trainer.py``, one device, no mesh).
+``geneface_tpu/training/trainer.py``).
 
 A :class:`Task` owns its model, optimizer and auxiliary state;
 :meth:`Trainer.fit` restores the newest checkpoint of the work dir (or
@@ -15,6 +15,20 @@ to ``codes/<ts>/``, ``profile_steps`` traces that many steps from
 ``profile_start_step`` with ``torch.profiler`` to ``profile/``. Step metrics
 stay on the device until a log step reads them. As in the JAX trainer, a
 resumed run re-seeds everything else (data order, noise) from ``seed``.
+
+Data parallelism (the JAX trainer's mesh): when a process group is up
+(:func:`~geneface_tpu_torch.parallel.initialize_distributed`) and
+``use_mesh`` is not false, :meth:`Task.setup_mesh` builds the ``(data,
+model)`` mesh over the ranks. Every rank draws the same global batch;
+:meth:`Task.place_batch` keeps its rows of ``data_batch_keys``;
+:meth:`Task.place_state` broadcasts rank 0's parameters, optimizer state
+and auxiliary state at the start and after a restore; a task averages its
+gradients over the data axis with :meth:`Task.sync_grads` before the
+optimizer step and its step metrics with :meth:`Task.reduce_metrics`.
+Every rank validates on the whole validation batches (so the random
+streams a validation draws from stay the same on every rank); rank 0 alone
+writes (checkpoints, metrics, images, logs, codes, traces) and the other
+ranks wait at a barrier.
 """
 
 from __future__ import annotations
@@ -26,6 +40,10 @@ import time
 from datetime import datetime
 from typing import Iterator
 
+import torch
+import torch.distributed as dist
+
+from geneface_tpu_torch import parallel
 from geneface_tpu_torch.config.config import save_config
 from geneface_tpu_torch.utils.checkpoint import CheckpointManager
 from geneface_tpu_torch.utils.logging import MetricsLogger
@@ -39,8 +57,109 @@ class Task:
     ``train_batches``, ``val_batches``, ``checkpoint_payload`` and
     ``restore_state``; the ``on_*`` hooks are optional."""
 
+    #: batch keys whose leading axis is the data axis (rays, frames, clips):
+    #: :meth:`place_batch` keeps this rank's rows of them, the rest whole
+    data_batch_keys: tuple = ()
+
     def __init__(self, cfg):
         self.cfg = cfg
+        self.mesh = None
+
+    # -- data parallelism ----------------------------------------------------
+    def setup_mesh(self):
+        """The ``(data, model)`` mesh over every rank of the process group,
+        all on ``data`` (``None`` without a process group or under
+        ``use_mesh: false``)."""
+        if self.cfg.get("use_mesh", True) and dist.is_initialized():
+            self.mesh = parallel.make_mesh()
+        return self.mesh
+
+    def place_batch(self, batch: dict) -> dict:
+        """This rank's rows of the ``data_batch_keys`` leaves (those whose
+        leading axis divides by the data size); every other leaf whole."""
+        if self.mesh is None:
+            return batch
+        keys = [k for k in self.data_batch_keys if k in batch]
+        out = {k: parallel.put_sharded(self.mesh, v, False) for k, v in batch.items()
+               if k not in keys}
+        out.update(parallel.shard_batch(self.mesh, {k: batch[k] for k in keys}))
+        return out
+
+    def data_group(self):
+        """The process group of the mesh's data axis (``None`` alone)."""
+        return None if self.mesh is None else self.mesh.get_group(parallel.DATA_AXIS)
+
+    def local_rows(self, x):
+        """This rank's rows of a global per-ray (per-frame, per-clip) array,
+        e.g. noise drawn at the global batch size."""
+        return parallel.local_rows(self.mesh, x)
+
+    def split_batch(self, batch: dict, key: str) -> tuple:
+        """→ (:meth:`place_batch` of ``batch``, the global row count of
+        ``batch[key]``), which must divide by the data size."""
+        n = len(batch[key])
+        if n % parallel.data_size(self.mesh):
+            raise ValueError(f"{n} rows do not split over {parallel.data_size(self.mesh)} ranks")
+        return self.place_batch(batch), n
+
+    def state_tensors(self) -> list:
+        """The tensors :meth:`place_state` broadcasts: every module's
+        parameters and buffers and every optimizer's state. Tasks add their
+        auxiliary state (occupancy grids)."""
+        out = []
+        for v in vars(self).values():
+            if isinstance(v, torch.nn.Module):
+                out.extend(v.state_dict().values())
+            elif isinstance(v, torch.optim.Optimizer):
+                for st in v.state.values():
+                    out.extend(t for t in st.values() if isinstance(t, torch.Tensor))
+                out.extend(getattr(v, a) for a in ("count", "skipped", "mini_step")
+                           if isinstance(getattr(v, a, None), torch.Tensor))
+        return out
+
+    def place_state(self) -> None:
+        """Broadcast rank 0's state (:meth:`state_tensors`) to every rank."""
+        if self.mesh is not None:
+            parallel.broadcast_tensors(self.mesh, self.state_tensors())
+
+    def sync_grads(self, params) -> None:
+        """Average the gradients of ``params`` over the data axis: one
+        all-reduce of the flattened gradients per dtype. Every rank then
+        holds the same gradient, so ``guard_nan_grads`` skips the same
+        steps everywhere."""
+        if self.mesh is None:
+            return
+        grads = [p.grad for p in params if p.grad is not None]
+        n = parallel.data_size(self.mesh)
+        for dtype in sorted({g.dtype for g in grads}, key=str):
+            part = [g for g in grads if g.dtype == dtype]
+            flat = torch.cat([g.reshape(-1) for g in part])
+            dist.all_reduce(flat, group=self.data_group())
+            flat /= n
+            off = 0
+            for g in part:
+                g.copy_(flat[off:off + g.numel()].view_as(g))
+                off += g.numel()
+
+    def reduce_metrics(self, metrics: dict, max_keys: tuple = ()) -> dict:
+        """Step metrics over the data axis: the mean over ranks (a mean of
+        equal-sized rank means is the global mean), the maximum for
+        ``max_keys``."""
+        if self.mesh is None:
+            return metrics
+        group = self.data_group()
+        out = dict(metrics)
+        for op, keys in ((dist.ReduceOp.SUM, [k for k in metrics if k not in max_keys]),
+                         (dist.ReduceOp.MAX, [k for k in max_keys if k in metrics])):
+            keys = [k for k in keys if isinstance(metrics[k], torch.Tensor)]
+            if not keys:
+                continue
+            vals = torch.stack([metrics[k].detach().float().reshape(()) for k in keys])
+            dist.all_reduce(vals, op=op, group=group)
+            if op == dist.ReduceOp.SUM:
+                vals = vals / parallel.data_size(self.mesh)
+            out.update(zip(keys, vals.unbind()))
+        return out
 
     def build(self) -> None:
         """Create the model, optimizer, datasets and state."""
@@ -134,13 +253,16 @@ class Trainer:
         self.work_dir = self.cfg.get("work_dir") or os.path.join(
             "checkpoints", self.cfg.get("exp_name", "default")
         )
-        os.makedirs(self.work_dir, exist_ok=True)
-        save_config(self.cfg, self.work_dir)
-        if self.cfg.get("tee_logs", False):
-            tee_terminal_logs(self.work_dir)
-        if self.cfg.get("save_codes", False):
-            snapshot_code(self.work_dir)
-        self.logger = MetricsLogger(self.work_dir)
+        #: rank 0 writes; the others only read checkpoints to resume
+        self.is_main = parallel.rank() == 0
+        if self.is_main:
+            os.makedirs(self.work_dir, exist_ok=True)
+            save_config(self.cfg, self.work_dir)
+            if self.cfg.get("tee_logs", False):
+                tee_terminal_logs(self.work_dir)
+            if self.cfg.get("save_codes", False):
+                snapshot_code(self.work_dir)
+        self.logger = MetricsLogger(self.work_dir) if self.is_main else None
         self.ckpt = CheckpointManager(
             self.work_dir, num_keep=self.cfg.get("num_ckpt_keep", 2),
             save_best=self.cfg.get("save_best", True),
@@ -152,6 +274,7 @@ class Trainer:
         returns the last step."""
         cfg = self.cfg
         task = self.task
+        task.setup_mesh()
         task.build()
         step = 0
         restored = self.ckpt.restore(cfg.get("resume_from_checkpoint", 0) or None)
@@ -160,6 +283,7 @@ class Trainer:
             task.restore_state(restored["state"])
             task.on_restore(restored.get("extra", {}))
             print(f"| resumed from step {step}", flush=True)
+        task.place_state()
         n_sanity = int(cfg.get("num_sanity_val_steps", 2))
         if n_sanity and restored is None:
             self.validate(step=step, max_batches=n_sanity, log=False)
@@ -174,14 +298,16 @@ class Trainer:
         train_iter = task.train_batches(step)
         try:
             while step < max_updates:
-                if prof_steps and step == prof_start:
+                if prof_steps and step == prof_start and self.is_main:
                     prof = self._start_profile()
                 pending.append(task.train_step(next(train_iter)))
                 step += 1
                 if prof is not None and step == prof_start + prof_steps:
                     self._stop_profile(prof, prof_start, step)
                     prof = None
-                if step % log_interval == 0:
+                if step % log_interval == 0 and not self.is_main:
+                    pending.clear()
+                elif step % log_interval == 0:
                     meters = MeterBank()
                     for m in pending:
                         meters.update(m)
@@ -195,7 +321,9 @@ class Trainer:
                         f"{k}={v:.4g}" for k, v in sorted(avgs.items())), flush=True)
                 if step % val_interval == 0 or step == max_updates:
                     val_metric = self.validate(step=step)
-                    self.ckpt.save(step, task.checkpoint_payload(step), val_metric=val_metric)
+                    if self.is_main:
+                        self.ckpt.save(step, task.checkpoint_payload(step), val_metric=val_metric)
+                    parallel.barrier(task.mesh)
         finally:
             if prof is not None:  # the run ended inside the traced steps
                 self._stop_profile(prof, prof_start, step)
@@ -241,7 +369,7 @@ class Trainer:
                 break
             meters.update(self.task.val_step(batch))
         avgs = meters.averages()
-        if log and avgs:
+        if log and avgs and self.is_main:
             self.logger.log_scalars(avgs, step, prefix="val/")
             print(f"| validation @ {step}: " + ", ".join(
                 f"{k}={v:.4g}" for k, v in sorted(avgs.items())), flush=True)

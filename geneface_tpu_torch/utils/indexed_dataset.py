@@ -10,8 +10,10 @@
 - overflow chunks ``<path>.<k>.data`` once a chunk exceeds
   ``max_chunk_size``.
 
-Reads are plain Python seeks into the chunk files (the JAX package's
-optional native reader is not copied).
+Reads go through the native mmap reader
+(:class:`~geneface_tpu_torch.native.NativeStore`) by default, as in the JAX
+package, or with ``use_native=False`` through plain Python seeks into the
+chunk files. A failed native build or open raises.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ _DEFAULT_HEADER_SIZE = 16 * 1024 * 1024
 class IndexedDataset:
     """Random-access reader over a finalized store."""
 
-    def __init__(self, path: str):
+    def __init__(self, path: str, use_native: bool = True):
         self.path = path
         with open(f"{path}.data", "rb") as f:
             index_len = int.from_bytes(f.read(_HEADER_LEN_BYTES), "little")
@@ -41,6 +43,12 @@ class IndexedDataset:
         self.meta: dict = dict(index.get("meta", {}))
         self.gzip: bool = bool(self.meta.get("gzip", False))
         self.chunk_begin: list[int] = list(self.meta.get("chunk_begin", [0]))
+        self.native = None
+        if use_native:
+            from geneface_tpu_torch.native import NativeStore
+
+            self.native = NativeStore(
+                [self._chunk_path(k) for k in range(len(self.chunk_begin))], self.chunk_begin)
 
     def __len__(self) -> int:
         return len(self.offsets) - 1
@@ -53,6 +61,8 @@ class IndexedDataset:
             i = self.id2pos[i]
         if not 0 <= i < len(self):
             raise IndexError(f"record {i} out of range [0, {len(self)})")
+        if self.native is not None:
+            return self.native.read(self.offsets[i], self.offsets[i + 1] - self.offsets[i])
         chunk_id = bisect(self.chunk_begin[1:], self.offsets[i])
         with open(self._chunk_path(chunk_id), "rb") as f:
             f.seek(self.offsets[i] - self.chunk_begin[chunk_id])

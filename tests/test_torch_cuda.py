@@ -20,7 +20,10 @@ head+torso) on the card vs the CPU — 1e-5 absolute per pixel; the datagen
 splat's weights and colours (K1 sums in another order) and its gradients
 (K8 adjoint) 1e-5 of max, the datagen networks' outputs 1e-5 of max |CPU|
 (TF32 off); the vanilla NeRF's render (the CPU on the card's importance
-samples) 1e-5 absolute per pixel, its gradients 1e-4 relative L2.
+samples) 1e-5 absolute per pixel, its gradients 1e-4 relative L2; two
+gloo ranks sharing the card against one rank — each step's loss rel 1e-3,
+its gradients 0.1 relative L2 (``chip_smoke.py``'s card bounds); the
+native loader's pixels within one uint8 level of the numpy path's.
 """
 
 import os
@@ -46,6 +49,7 @@ from geneface_tpu_torch.ops.scatter import (
 )
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 pytestmark = pytest.mark.cuda
 
@@ -588,3 +592,60 @@ def test_audio2pose_on_card_matches_cpu(card):
              for m in (gpu, cpu)]
     torch.testing.assert_close(poses[0], poses[1], rtol=0,
                                atol=1e-5 * float(poses[1].abs().max()))
+
+
+def test_two_rank_gloo_steps_on_card_match_one_rank(card, tmp_path):
+    """Two gloo ranks sharing ``cuda:0`` (``tests/torch_ddp_helpers.py``)
+    against one rank on the card: 3 head steps of 2,048 rays at float32
+    MLPs, the sweep at step 0 — each step's loss within rel 1e-3 and every
+    gradient within relative L2 0.1 (the bounds of ``chip_smoke.py``'s
+    card checks: atomic order and the halved batches regroup sums), the
+    ranks' gradients equal, both kernels launched in the one-rank run."""
+    import chip_smoke
+    import torch_ddp_helpers as ddp
+
+    from geneface_tpu_torch.data.radnerf_dataset import RADNeRFDataset
+
+    cfg = chip_smoke.train_cfg(chip_smoke.write_scene(str(tmp_path), hw=128, n_frames=4))
+    cfg.update(n_rays=2048, update_extra_interval=16)
+    ds = RADNeRFDataset("train", cfg["data_dir"], cfg, training=True)
+    case = dict(kind="head", cfg=cfg, batches=[ds[i] for i in range(3)], device="cuda:0")
+    r0, r1 = (r["head"] for r in ddp.run_ranks("steps", {"cases": {"head": case}}, 2,
+                                              str(tmp_path / "ranks"), device="cuda:0"))
+    before = dict(LAUNCHES)
+    one = ddp.step_result(**case)
+    assert all(LAUNCHES[k] > before[k] for k in before)
+    for s, (l1, l2) in enumerate(zip(one["losses"], r0["losses"])):
+        assert abs(l2["total_loss"] - l1["total_loss"]) <= 1e-3 * abs(l1["total_loss"]), s
+        for name, g in one["grads"][s].items():
+            err = np.linalg.norm(r0["grads"][s][name] - g) / max(np.linalg.norm(g), 1e-30)
+            assert err <= 0.1, (s, name, err)
+            np.testing.assert_array_equal(r1["grads"][s][name], r0["grads"][s][name])
+    for a, b in zip(r0["occ"], r1["occ"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_native_loader_feeds_a_card_step(card, tmp_path):
+    """The default (native) batches train a step on the card, and agree with
+    the numpy path's within one uint8 level."""
+    import chip_smoke
+
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+
+    cfg = chip_smoke.train_cfg(chip_smoke.write_scene(str(tmp_path), hw=128, n_frames=4))
+    cfg.update(n_rays=4096, native_loader=True)
+    task = RADNeRFTask(cfg, device=card, dtype=torch.float32)
+    task.build()
+    assert task.train_ds.native_loader is not None
+    batch = task.train_ds[1]
+    numpy_ds = type(task.train_ds)("train", cfg["data_dir"], dict(cfg, native_loader=False),
+                                   training=True)
+    ref = numpy_ds[1]
+    np.testing.assert_array_equal(batch["inds"], ref["inds"])
+    for k in ("gt_img_u8", "bg_img_u8", "bg_torso_img_u8"):
+        assert np.abs(batch[k].astype(np.int16) - ref[k]).max() <= 1, k
+    before = dict(LAUNCHES)
+    out = task.train_step(batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(out["total_loss"]))
+    assert all(LAUNCHES[k] > before[k] for k in before)

@@ -157,3 +157,39 @@ print("ok", sorted(m for m in sys.modules if m.split(".")[0] in ("cv2", "PIL")))
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok ['PIL', 'cv2']"  # the blocked entries
     assert os.path.exists(tmp_path / "bin" / "trainval_dataset.npy")
+
+
+def test_parallel_and_native_import_no_jax():
+    """``parallel/`` and ``native/`` are among the modules imported above,
+    and running them — a one-rank gloo group with its mesh, a batch split,
+    the native library's build and a gather — pulls in no JAX, flax or
+    ``geneface_tpu`` either."""
+    mods = set(_port_modules())
+    for name in ("parallel", "parallel.mesh", "native", "native.build"):
+        assert f"geneface_tpu_torch.{name}" in mods, name
+    code = (
+        "import os, sys, socket\n"
+        "import numpy as np, torch\n"
+        "from geneface_tpu_torch import parallel\n"
+        "from geneface_tpu_torch.native import NativeBatchLoader\n"
+        "s = socket.socket(); s.bind(('127.0.0.1', 0)); port = s.getsockname()[1]; s.close()\n"
+        "os.environ.update(WORLD_SIZE='1', RANK='0', LOCAL_RANK='0',\n"
+        "                  MASTER_ADDR='127.0.0.1', MASTER_PORT=str(port))\n"
+        "assert parallel.initialize_distributed('cpu') == torch.device('cpu')\n"
+        "mesh = parallel.make_mesh()\n"
+        "out = parallel.shard_batch(mesh, {'x': np.arange(4)})\n"
+        "assert out['x'].tolist() == [0, 1, 2, 3]\n"
+        "u8 = np.zeros((1, 4, 3), np.uint8)\n"
+        "NativeBatchLoader(u8, u8, u8[0]).gather(0, np.arange(4, dtype=np.int32))\n"
+        "torch.distributed.destroy_process_group()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'geneface_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = REPO
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=180)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip().splitlines()[-1] == "ok"

@@ -122,7 +122,7 @@ def check_step(task, jtask, params, batch, key, with_att, train_params, monkeypa
     replay = [jnp.asarray(z.numpy()) for z in port_samples]
     monkeypatch.setattr(jvol, "sample_pdf", lambda *a, **kw: replay.pop(0))
     monkeypatch.setattr(jbackbone, "nn", decisions)
-    jbatch = {k: jnp.asarray(batch[k]) for k in task.data_batch_keys}
+    jbatch = {k: jnp.asarray(batch[k]) for k in task.batch_keys}
     (jl, _), jg = jax.value_and_grad(
         lambda p: jtask._loss_fn(p, jbatch, key, True, with_att), has_aux=True)(params)
     assert not replay and not decisions.masks
