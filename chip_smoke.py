@@ -2,7 +2,7 @@
 
     python3 chip_smoke.py
 
-Drives the port's fifteen paths at the full width of
+Drives the port's seventeen paths at the full width of
 ``egs/egs_bases/radnerf/lm3d_radnerf.yaml`` (and ``lm3d_radnerf_torso.yaml``)
 on a 512² synthetic 8-frame dataset, of HuBERT-large, ``VAEModel(204)``
 and ``CNNPostNet(204)`` (``egs/datasets/videos/May/lm3d_postnet_sync.yaml``),
@@ -130,7 +130,25 @@ and of the vanilla NeRF (``egs/egs_bases/nerf/lm3d_nerf.yaml``,
   one step held against the CPU on the card's LeakyReLU decisions, then
   ``Audio2PoseInfer.infer`` of the ``asr`` path's windows → c2w ``[200,
   4, 4]`` held against the CPU, with ms per rolled frame and launches per
-  frame. Neither path launches K1 or K8, and the script checks that.
+  frame. Neither path launches K1 or K8, and the script checks that;
+- the real-time viewer (``gui``): ``NeRFWebGUI(port=0)`` serving the head
+  checkpoint, then the torso checkpoint, on 127.0.0.1; real HTTP requests
+  (``/``, ``/frame?advance=1``, ``/orbit``, ``/zoom``, a ``POST /state``
+  setting every control key, then ``/frame`` at each rung 1, 0.75, 0.5,
+  0.25 through the ``downscale`` override), every JPEG decoded and its
+  ``x-meta`` height checked, K1 and K8 counted per frame; per rung the
+  frame time, the device's busy and idle share, the HTTP round trip with
+  its JPEG and host-input shares, and ``RealtimeRenderer.render``'s frame
+  held against the CPU viewer (the card's ReLU decisions replayed, their
+  count bounded, and with the CPU's own decisions); the
+  rung the ladder settles on at a 40 ms target after 8 frames; K1/K8 sites
+  ``gui.<head|torso>.<rung>.*``;
+- the audio2motion models (``a2m_models``): the CNN generator with each
+  backbone, the transformer generator, the VQ-VAE, the Glow stack and the
+  discriminator at their constructors' published widths on one seeded
+  batch of 8 × 200 frames, TF32 off: forward outputs and one backward's
+  gradients card vs CPU (the card's ReLU decisions replayed, their count
+  and distance from zero bounded), ms per model. No K1 or K8, checked.
 
 It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, and
 ``g++`` for the host library, started together), sets the launch counts
@@ -152,7 +170,7 @@ and the idle share of a frame and of a step of each path
 per kernel call site (the variant chosen and every variant's time, the
 bound, the plain version and the library call; a reference or block grid
 site is named by grid, level and backend), and one ``{"kernels": [...]}``
-JSON line listing every site of the fifteen paths.
+JSON line listing every site of the seventeen paths.
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device times from
 the profiler (kernels, copies and fills only), ``library_ms``, each
 variant's and each gather's the median of three windows; ``ms_events`` adds
@@ -1316,13 +1334,41 @@ class CardDecisions:
     and note which elements pass, and ``F.max_pool2d`` notes the element
     each window picks; inside :meth:`replay` the CPU run passes exactly
     those elements and picks those (the CPU's own values, its own gradient
-    through them) and counts the elements whose own decision differed."""
+    through them) and counts the elements whose own decision differed.
+    ``worst_flip`` is the largest distance from the decision of such an
+    element on the CPU (|pre-activation|, or the gap between the CPU's own
+    pick and the card's), over the largest |value| of its tensor; :meth:`check`
+    bounds it and the count, so that a card that got a sign plainly wrong
+    fails instead of being copied."""
 
     def __init__(self, modules: tuple | None = None):
         """``modules``: those whose ``F`` is patched (default SyncNet's and
         the post-net's)."""
-        self.masks, self.flips, self.elements = [], 0, 0
+        self.masks, self.flips, self.elements, self.worst_flip = [], 0, 0, 0.0
         self.modules = modules
+
+    def _note(self, differ, gap, x):
+        """Count the elements that differ and keep their worst ``gap``
+        (same shape as ``differ``) relative to ``max |x|``."""
+        n = int(differ.sum())
+        self.flips += n
+        self.elements += x.numel()
+        if n:
+            scale = float(x.detach().abs().max())
+            worst = float(gap.detach()[differ].abs().max())
+            self.worst_flip = max(self.worst_flip, worst / scale if scale > 0 else float("inf"))
+
+    def check(self, path: str, max_share: float, near_zero: float | None):
+        """Raise unless at most ``max(10, max_share · elements)`` decisions
+        differed on the CPU and (unless ``near_zero`` is None) each of them
+        lay within ``near_zero`` of the largest |value| of its tensor (the
+        devices' rounding, not a wrong sign)."""
+        limit = max(10, max_share * self.elements)
+        if self.flips > limit or (near_zero is not None and self.worst_flip > near_zero):
+            raise AssertionError(
+                f"{path}: {self.flips} of {self.elements} activation decisions differ on "
+                f"the CPU (limit {limit:g}), the farthest {self.worst_flip:.3e} of its "
+                f"tensor's max |value| from the decision (limit {near_zero:g})")
 
     def _patched(self, record: bool):
         import contextlib
@@ -1343,8 +1389,7 @@ class CardDecisions:
             card = owner.masks[next(calls)].to(x.device)
             if card.shape != x.shape:
                 raise AssertionError(f"activation {card.shape} on the card, {x.shape} on CPU")
-            owner.flips += int((card != (x > 0)).sum())
-            owner.elements += x.numel()
+            owner._note(card != (x > 0), x, x)
             return torch.where(card, x, slope * x)
 
         def pick(x, *args, **kw):
@@ -1355,9 +1400,9 @@ class CardDecisions:
             card = owner.masks[next(calls)].to(x.device)
             if card.shape != idx.shape:
                 raise AssertionError(f"max-pool {card.shape} on the card, {idx.shape} on CPU")
-            owner.flips += int((card != idx).sum())
-            owner.elements += idx.numel()
-            return x.flatten(2).gather(2, card.flatten(2)).view_as(y)
+            picked = x.flatten(2).gather(2, card.flatten(2)).view_as(y)
+            owner._note(card != idx, y - picked, x)
+            return picked
 
         class Functional:
             def __getattr__(self, name):
@@ -1391,6 +1436,7 @@ class CardDecisions:
 
     def replay(self):
         self.flips = self.elements = 0
+        self.worst_flip = 0.0
         return self._patched(False)
 
 
@@ -4264,6 +4310,429 @@ def pose_phase(cfg, out_dir: str, path: str = "pose") -> tuple:
     return record, launches, {}
 
 
+GUI_RUNGS = (1.0, 0.75, 0.5, 0.25)
+#: the viewer's frame card vs CPU at bf16 head MLPs (the serve path's bounds),
+#: with the card's ReLU and leaky-ReLU decisions replayed on the CPU
+GUI_FRAME_BOUND = 1e-3
+GUI_FRAME_MEAN_BOUND = 1e-6
+#: the decisions the CPU may copy from the card in one frame, a share of
+#: those replayed (7.5e-6 to 1.03e-5 seen on an H100 80GB HBM3 at 700 W).
+#: Their distance from zero is not bounded here: the ambient net's outputs
+#: round to bf16, and where one rounds the other way on the card its
+#: coordinate moves across cells of the finest ambient grid, so a few whole
+#: rows of the sigma net's first layer differ (by up to ~0.5 of its max);
+#: the frame is held with the CPU's own decisions as well instead
+GUI_FLIP_SHARE = 3e-5
+GUI_LADDER_FRAMES = 8
+GUI_TARGET_MS = 40.0
+
+
+def _http(base: str, route: str, payload: dict | None = None) -> tuple:
+    """One request to the viewer → (body, headers, round-trip ms)."""
+    import urllib.request
+
+    req = urllib.request.Request(base + route, method="GET" if payload is None else "POST",
+                                 data=None if payload is None else json.dumps(payload).encode())
+    t = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        body = resp.read()
+        headers = dict(resp.headers)
+    return body, headers, (time.perf_counter() - t) * 1e3
+
+
+def _decode_frame(body: bytes, headers: dict) -> tuple:
+    """A ``/frame`` answer → (the decoded JPEG [h, w, 3], its x-meta)."""
+    import cv2
+    import numpy as np
+
+    meta = json.loads(headers["x-meta"])
+    img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    if body[:2] != b"\xff\xd8" or img is None or img.shape != (meta["h"], meta["w"], 3):
+        raise AssertionError(f"/frame: not a {meta['h']}x{meta['w']} JPEG ({len(body)} bytes)")
+    return img, meta
+
+
+def gui_frame_vs_cpu(gui, cpu, path: str) -> dict:
+    """The card viewer's next frame against the CPU viewer's (the same
+    camera, condition, code, knobs and rung), float frames: once with the
+    card's ReLU and leaky-ReLU decisions replayed on the CPU (at most
+    ``GUI_FLIP_SHARE`` of them copied), and once with the CPU's own, so
+    that no copied decision can hide a difference in the frame."""
+    import torch
+
+    from geneface_tpu_torch.models.radnerf import cond_encoder
+
+    r = gui.renderer
+    for k in ("cond_index", "ind_index", "dt_gamma", "max_steps", "t_thresh", "bg_color",
+              "downscale_override"):
+        setattr(cpu, k, getattr(r, k))
+    decisions = CardDecisions((cond_encoder,))
+    with decisions.record():
+        r.render(gui.cam)
+    got = r.infer.last_render["rgb_map"].float().cpu()
+    with decisions.replay():
+        cpu.render(gui.cam)
+    ref = cpu.infer.last_render["rgb_map"].float()
+    samples_equal = bool(torch.equal(r.infer.last_render["n_samples"].cpu(),
+                                     cpu.infer.last_render["n_samples"]))
+    cpu.render(gui.cam)
+    own = (got - cpu.infer.last_render["rgb_map"].float()).abs()
+    diff = (got - ref).abs()
+    decisions.check(path, GUI_FLIP_SHARE, None)
+    res = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()),
+           "max_abs_own_decisions": float(own.max()),
+           "mean_abs_own_decisions": float(own.mean()),
+           "decisions_replayed": decisions.elements, "decisions_differing": decisions.flips,
+           "worst_flip": decisions.worst_flip, "samples_equal": samples_equal}
+    if not (max(res["max_abs"], res["max_abs_own_decisions"]) <= GUI_FRAME_BOUND
+            and max(res["mean_abs"], res["mean_abs_own_decisions"]) <= GUI_FRAME_MEAN_BOUND):
+        raise AssertionError(f"{path}: the viewer's card frame disagrees with the CPU: {res}")
+    return res
+
+
+def gui_phase(cfg, out_dir: str, path: str = "gui") -> tuple:
+    """The real-time viewer on the 512² scene, for the head checkpoint and
+    the torso checkpoint: ``NeRFWebGUI(port=0)`` serving on 127.0.0.1 and
+    real HTTP requests — ``/``, ``/frame?advance=1``, ``/orbit``, ``/zoom``,
+    a ``POST /state`` that sets every control key, then ``/frame`` at each
+    rung of the ladder through the ``downscale`` override, each JPEG decoded
+    and its ``x-meta`` height checked (the counted main path); then per
+    rung the frame time, the device's busy and idle share, the launches,
+    the HTTP round trip and its JPEG share, the frame held against the CPU
+    viewer, and the K1/K8 sites (``gui.<head|torso>.<rung>.*``); and the
+    rung the ladder settles on at a 40 ms target after 8 frames →
+    (record, launches, sites)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.inference import NeRFWebGUI, RADNeRFInfer, RealtimeRenderer
+    from geneface_tpu_torch.kernels import LAUNCHES
+
+    record, sites, counted = {}, {}, {k: 0 for k in LAUNCHES}
+    for kind, kcfg in (("head", cfg), ("torso", torso_cfg(cfg))):
+        gui = NeRFWebGUI(RADNeRFInfer(kcfg), port=0)  # cuda, bf16 head MLPs
+        r = gui.renderer
+        httpd = gui.serve(blocking=False)
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        model = r.infer.model
+        compact = bool(r.infer.render_kwargs["mean_samples_per_ray"])
+        try:
+            _http(base, "/frame")  # warm-up: first launches, the allocator
+            torch.cuda.synchronize()
+            for k in LAUNCHES:
+                LAUNCHES[k] = 0
+            want = {k: 0 for k in LAUNCHES}
+            heights = []
+
+            def frame(route):
+                img, meta = _decode_frame(*_http(base, route)[:2])
+                H = meta["h"]
+                want["scatter_add_rows"] += int(compact) + int(
+                    r.ray_capacity(H, meta["w"]) is not None)
+                want["gather_rows"] += sum(n_grid_groups(model))
+                heights.append(H)
+                return img, meta
+
+            if b"geneface-tpu" not in _http(base, "/")[0]:
+                raise AssertionError(f"{path}: the page")
+            _, meta = frame("/frame?advance=1")
+            if meta["cond_index"] != 1:
+                raise AssertionError(f"{path}: /frame?advance=1 gave {meta}")
+            for route in ("/orbit?dx=40&dy=-15", "/zoom?d=1"):
+                if _http(base, route)[0] != b"ok":
+                    raise AssertionError(f"{path}: {route}")
+            # every control key; the camera's own radius and field of view
+            state = json.loads(_http(base, "/state")[0])
+            control = {"cond_index": 3, "ind_index": 1, "fovy": state["fovy"],
+                       "radius": state["radius"], "dt_gamma": 1.0 / 256, "max_steps": 16,
+                       "t_thresh": 2e-4, "bg_color": [1.0, 0.0, 0.0], "downscale": 0.5,
+                       "target_frame_ms": GUI_TARGET_MS}
+            state = json.loads(_http(base, "/state", control)[0])
+            if any(state[k] != v for k, v in control.items()):
+                raise AssertionError(f"{path}: POST /state {control} gave {state}")
+            img, meta = frame("/frame")  # the knobs reach the frame: the 0.5 rung, red
+            last = r.infer.last_render
+            empty = last["weights_sum"] == 0
+            if "torso_alpha_map" in last:
+                empty &= last["torso_alpha_map"][:, 0] == 0
+            empty = empty.reshape(meta["h"], meta["w"]).cpu().numpy()
+            bgr = img[empty].mean(0) if empty.any() else None
+            if meta["h"] != HW // 2 or bgr is None or not (bgr[2] > 150 and bgr[0] < 80):
+                raise AssertionError(f"{path}: the 0.5 rung on red gave {meta}, {bgr}")
+            _http(base, "/state", {"bg_color": None})
+            http = {}
+            for rung in GUI_RUNGS:
+                _http(base, "/state", {"downscale": rung})
+                img, meta = frame("/frame")
+                if meta["h"] != max(int(HW * rung) // 8 * 8, 8):
+                    raise AssertionError(f"{path}: rung {rung} gave x-meta {meta}")
+                http[rung] = [_http(base, "/frame")[2] for _ in range(3)]
+                want["scatter_add_rows"] += 3 * (int(compact) + int(
+                    r.ray_capacity(meta["h"], meta["w"]) is not None))
+                want["gather_rows"] += 3 * sum(n_grid_groups(model))
+            torch.cuda.synchronize()
+            launches = dict(LAUNCHES)
+            if launches != want:
+                raise AssertionError(f"{path}.{kind}: launches {launches}, expected {want}")
+            for k in counted:
+                counted[k] += launches[k]
+
+            cpu = RealtimeRenderer(RADNeRFInfer(kcfg, device="cpu"))
+            if cpu.infer.ray_capacity != r.infer.ray_capacity:
+                raise AssertionError(f"{path}: capacity {cpu.infer.ray_capacity} on CPU vs "
+                                     f"{r.infer.ray_capacity}")
+            rungs = {}
+            for rung in GUI_RUNGS:
+                r.downscale_override = rung
+                times = []
+                for _ in range(5):
+                    r.render(gui.cam)
+                    times.append(r.last_frame_ms)
+                ms = sorted(times)[2]
+                H, W = r._resolution()
+                before = dict(LAUNCHES)
+                f = r.render(gui.cam)
+                per_frame = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+                prof = nerf_profile(lambda: r.render(gui.cam), out_dir,
+                                    f"{path}_{kind}_{rung}_frame", ms)
+                calls = capture_calls(lambda: r.render(gui.cam))
+                sites.update(name_sites(calls, grid_names(model), f"{path}.{kind}.{rung}"))
+                jpeg_ms = host_ms(lambda: gui._encode_jpeg(f))
+                inputs_ms = host_ms(lambda: r.inputs(gui.cam))
+                http_ms = sorted(http[rung])[1]
+                check = gui_frame_vs_cpu(gui, cpu, f"{path}.{kind}.{rung}")
+                rungs[rung] = {"h": H, "w": W, "ray_capacity": r.ray_capacity(H, W),
+                               "ms_per_frame": ms, "frame_ms": times,
+                               "device_busy_ms": prof["device_busy_ms"],
+                               "idle_share": prof["idle_share"],
+                               "device_launches_per_frame": prof["launches"],
+                               "kernel_launches_per_frame": per_frame,
+                               "http_round_trip_ms": http_ms, "jpeg_ms": jpeg_ms,
+                               "host_inputs_ms": inputs_ms,
+                               "jpeg_share": jpeg_ms / http_ms, "vs_cpu": check}
+                print(f"{path}.{kind} rung {rung} ({H}x{W}, capacity "
+                      f"{r.ray_capacity(H, W)}): {ms:.3f} ms/frame (median of 5, to the "
+                      f"frame on the host); device busy {fmt_ms(prof['device_busy_ms'], ' ms')}, "
+                      f"idle share {fmt_ms(prof['idle_share'])}; launches {json.dumps(per_frame)}"
+                      f" of K1/K8, {prof['launches']} on the device; HTTP /frame round trip "
+                      f"{http_ms:.3f} ms (median of 3), JPEG {jpeg_ms:.3f} ms (share "
+                      f"{jpeg_ms / http_ms:.3f}), the host's inputs (rays, the dataset item, "
+                      f"background) {inputs_ms:.3f} ms; card vs CPU max abs "
+                      f"{check['max_abs']:.3e}, "
+                      f"mean {check['mean_abs']:.3e} (bounds {GUI_FRAME_BOUND:g}, "
+                      f"{GUI_FRAME_MEAN_BOUND:g}), decisions differing on the CPU "
+                      f"{check['decisions_differing']} of {check['decisions_replayed']} "
+                      f"(limit {GUI_FLIP_SHARE:g} of them), the farthest "
+                      f"{check['worst_flip']:.3e} of its tensor's max from zero; with the "
+                      f"CPU's own decisions max abs {check['max_abs_own_decisions']:.3e}, mean "
+                      f"{check['mean_abs_own_decisions']:.3e}")
+                if not np.isfinite(f).all() or f.shape != (H, W, 3):
+                    raise AssertionError(f"{path}: frame {f.shape}")
+            # the ladder at the viewer's 40 ms target, from the full rung
+            r.downscale_override, r.downscale, r.target_frame_ms = None, 1.0, GUI_TARGET_MS
+            ladder = []
+            for _ in range(GUI_LADDER_FRAMES):
+                r.render(gui.cam)
+                ladder.append((r.last_frame_ms, r.downscale))
+            print(f"{path}.{kind}: the ladder at a {GUI_TARGET_MS:g} ms target settles on "
+                  f"rung {r.downscale} after {GUI_LADDER_FRAMES} frames; (ms, next rung) "
+                  + json.dumps([[round(ms, 3), d] for ms, d in ladder]))
+            record[kind] = {"rungs": rungs, "ladder": ladder, "ladder_rung": r.downscale,
+                            "launches": launches, "frame_heights": heights}
+        finally:
+            gui.close()
+    return record, counted, sites
+
+
+#: the a2m_models path: a batch of realistic length, the bounds of stage A
+A2M_BATCH = 8
+A2M_FRAMES = 200
+A2M_FWD_BOUND = 1e-5  # of max |CPU output|
+A2M_GRAD_BOUND = 1e-4  # relative L2, per parameter
+#: the decisions the CPU may copy from the card: at most max(10, this share)
+#: of those replayed, each within A2M_FWD_BOUND of its tensor's max |value|
+#: of zero (the gap the card and CPU may show on an output)
+A2M_FLIP_SHARE = 1e-6
+
+
+def seed_model(model, seed: int):
+    """Every parameter of ``model`` from a seeded generator: the layers'
+    ``init_weights_``, and the parameters it leaves (PReLU slopes, ActNorm,
+    the invertible 1×1's rotation, the codebook, ``pos_alpha``) drawn here."""
+    import torch
+
+    from geneface_tpu_torch.models.layers import init_weights_
+
+    g = torch.Generator().manual_seed(seed)
+    init_weights_(model, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.PReLU):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=g) * 0.2)
+            for name in getattr(m, "flax_leaves", {}):
+                p = getattr(m, name)
+                if name == "weight":  # InvConvNear
+                    p.copy_(torch.linalg.qr(torch.randn(p.shape, generator=g))[0])
+                elif name == "codebook":
+                    p.copy_(torch.randn(p.shape, generator=g))
+                else:
+                    p.copy_((name == "pos_alpha") + 0.1 * torch.randn(p.shape, generator=g))
+    return model
+
+
+def a2m_cases(seed: int = 0) -> list:
+    """(name, model, inputs, forward) of each audio2motion model at its
+    constructor's published widths on one seeded batch of 8 × 200 frames
+    (the last clips padded at their tails)."""
+    import torch
+
+    from geneface_tpu_torch.models.audio2motion import Discriminator, Glow
+    from geneface_tpu_torch.models.audio2motion.cnn_models import SeqLevelConvolutionalModel
+    from geneface_tpu_torch.models.audio2motion.transformer import TransformerStyleFusionModel
+    from geneface_tpu_torch.models.audio2motion.vqvae import VQVAEModel
+
+    g = torch.Generator().manual_seed(seed)
+    B, T = A2M_BATCH, A2M_FRAMES
+    lengths = torch.tensor([T - 12 * i for i in range(B)])
+    mask = (torch.arange(T)[None] < lengths[:, None]).float()
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g)
+
+    feats = {"audio": rand(B, T, 29) * mask[..., None], "energy": rand(B, T, 1) * mask[..., None],
+             "style": rand(B, 135), "x_mask": mask}
+    cases = [(f"cnn_{bb}", SeqLevelConvolutionalModel(backbone_type=bb), feats,
+              lambda m, x: m(x)) for bb in ("unet", "resnet", "resblocks")]
+    cases.append(("transformer", TransformerStyleFusionModel(),
+                  {k: feats[k] for k in ("audio", "energy", "style", "x_mask")},
+                  lambda m, x: (m(x["audio"], x["energy"], x["style"], x["x_mask"]),)))
+    vq = VQVAEModel()
+    cases.append(("vqvae", vq, {"hubert": rand(B, 2 * T, 1024), "x": rand(B, T, 64),
+                                "x_mask": mask, "noise": rand(*vq.noise_shape(B, T))},
+                  lambda m, x: tuple(m(x["hubert"], x["x"], x["x_mask"], x["noise"])[k]
+                                     for k in ("pred", "commit_loss", "z_q", "m_q"))))
+    cases.append(("glow", Glow(64, 64, gin_channels=64),
+                  {"x": rand(B, 64, T) * mask[:, None], "x_mask": mask[:, None],
+                   "g": rand(B, 64, T)},
+                  lambda m, x: m(x["x"], x["x_mask"], x["g"])))
+    starts = torch.randint(0, T, (3,), generator=g).tolist()
+    cases.append(("discriminator", Discriminator(),
+                  {"x": rand(B, T, 64) * mask[..., None], "mel": rand(B, 2 * T, 1024)},
+                  lambda m, x: (m(x["x"], x["mel"], starts),)))
+    return [(n, seed_model(m, seed + i), x, f) for i, (n, m, x, f) in enumerate(cases)]
+
+
+def a2m_models_phase(cfg, out_dir: str, path: str = "a2m_models") -> tuple:
+    """The audio2motion models of the last slice (the CNN generator with each
+    backbone, the transformer generator, the VQ-VAE, the Glow stack, the
+    discriminator) at their constructors' published widths on one seeded
+    batch of 8 × 200 frames, eval mode, TF32 off: each forward's outputs and
+    one backward's parameter gradients (of a seeded projection of the
+    outputs) on the card against the CPU, and ms per forward+backward →
+    (record, launches, sites). None of them launches K1 or K8.
+
+    Bounds (stage A's): outputs within 1e-5 of max |CPU|, each parameter's
+    gradient within 1e-4 relative L2; the attention's key bias, whose
+    gradient is zero in exact arithmetic (softmax ignores a common shift),
+    within 1e-4 of the whole gradient's norm. The CPU replays the card's
+    ReLU and leaky-ReLU decisions (:class:`CardDecisions`): one
+    pre-activation of ~1e7 that rounds to the other side of zero moved the
+    transformer's gradients by up to 8.2e-4 relative L2 on an H100 80GB
+    HBM3 at 700 W (2.3e-4 between float32 and float64 on the CPU, 2.2e-6
+    with the decisions replayed). The replay may copy at most
+    ``max(10, A2M_FLIP_SHARE · replayed)`` decisions, each within
+    ``A2M_FWD_BOUND`` of its tensor's max |value| of zero."""
+    import copy
+
+    import torch
+
+    from geneface_tpu_torch import resolve_device
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.models.audio2motion import (
+        cnn_models,
+        discriminators,
+        transformer,
+        vqvae,
+    )
+
+    card = resolve_device()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    record, failed = {}, []
+    try:
+        for name, model, inputs, forward in a2m_cases():
+            res = {}
+            decisions = CardDecisions((cnn_models, discriminators, transformer, vqvae))
+            for dev in (card, "cpu"):
+                m = (copy.deepcopy(model) if dev == card else model).to(dev).eval()
+                x = {k: v.to(dev) for k, v in inputs.items()}
+                gen = torch.Generator().manual_seed(11)
+                with (decisions.record if dev == card else decisions.replay)():
+                    outs = forward(m, x)
+                    ws = [torch.randn(o.shape, generator=gen).to(dev) for o in outs]
+                    sum((o * w).sum() for o, w in zip(outs, ws)).backward()
+                res[str(dev)] = ([o.detach().cpu().double() for o in outs],
+                                 {n: p.grad.detach().cpu().double()
+                                  for n, p in m.named_parameters() if p.grad is not None})
+                if dev == card:
+                    def step(m=m, x=x, ws=ws):
+                        m.zero_grad(set_to_none=True)
+                        sum((o * w).sum() for o, w in zip(forward(m, x), ws)).backward()
+
+                    ms = host_ms(step)
+                    with torch.no_grad():
+                        fwd_ms = host_ms(lambda: forward(m, x))
+            (go, gg), (co, cg) = res[str(card)], res["cpu"]
+            fwd = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                      for a, b in zip(go, co))
+            if set(gg) != set(cg) or not cg:
+                raise AssertionError(f"{path}.{name}: gradients {sorted(set(gg) ^ set(cg))}")
+            rel = {n: float((gg[n] - g).norm() / g.norm().clamp_min(1e-30)) for n, g in cg.items()}
+            # the attention's key bias: zero in exact arithmetic (softmax
+            # ignores a common shift), held against the gradient's whole norm
+            total = float(torch.sqrt(sum((g**2).sum() for g in cg.values())))
+            shift = {n: float((gg[n] - cg[n]).norm()) / total for n in cg
+                     if n.endswith("key.bias")}
+            worst = max((n for n in rel if n not in shift), key=rel.get)
+            n_params = sum(p.numel() for p in model.parameters())
+            record[name] = {"params": n_params, "ms_fwd_bwd": ms, "ms_fwd": fwd_ms,
+                            "forward_rel_max_abs": fwd, "grad_rel_l2_max": rel[worst],
+                            "grad_rel_l2_at": worst,
+                            "key_bias_grad_over_total": max(shift.values(), default=None),
+                            "decisions_replayed": decisions.elements,
+                            "decisions_differing": decisions.flips,
+                            "worst_flip": decisions.worst_flip}
+            print(f"{path}.{name} ({n_params / 1e6:.2f}M parameters): forward "
+                  f"{fwd_ms:.3f} ms, forward+backward {ms:.3f} ms (median of 5); card vs CPU: "
+                  f"forward max abs {fwd:.3e} of max |CPU| (bound {A2M_FWD_BOUND:g}), "
+                  f"gradients relative L2 max {rel[worst]:.3e} at {worst} (bound "
+                  f"{A2M_GRAD_BOUND:g}) over {len(rel) - len(shift)} tensors"
+                  + (f"; key-bias gradients {max(shift.values()):.3e} of the total norm "
+                     f"(bound {A2M_GRAD_BOUND:g})" if shift else "")
+                  + f"; ReLU decisions differing on the CPU {decisions.flips} of "
+                  f"{decisions.elements} (replayed; limit max(10, "
+                  f"{A2M_FLIP_SHARE:g} of them)), the farthest {decisions.worst_flip:.3e} of "
+                  f"its tensor's max from zero (limit {A2M_FWD_BOUND:g})")
+            try:
+                decisions.check(f"{path}.{name}", A2M_FLIP_SHARE, A2M_FWD_BOUND)
+            except AssertionError as e:
+                print(e)
+                failed.append(name)
+            if not (fwd <= A2M_FWD_BOUND and rel[worst] <= A2M_GRAD_BOUND
+                    and all(v <= A2M_GRAD_BOUND for v in shift.values())):
+                failed.append(name)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    launches = dict(LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"{path}: the audio2motion models launched {launches}")
+    if failed:
+        raise AssertionError(f"{path}: card vs CPU beyond the bounds for {failed}")
+    return record, launches, {}
+
+
 def main() -> int:
     import torch
 
@@ -4310,7 +4779,9 @@ def main() -> int:
                   ("nerf_serve", nerf_serve_phase, cfg),
                   ("nerf_train", nerf_train_phase, cfg),
                   ("asr", asr_phase, cfg),
-                  ("pose", pose_phase, cfg)]
+                  ("pose", pose_phase, cfg),
+                  ("gui", gui_phase, cfg),
+                  ("a2m_models", a2m_models_phase, cfg)]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

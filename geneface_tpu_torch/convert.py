@@ -31,6 +31,16 @@ their submodules as flax does, so :func:`load_flax_variables` and
 - ``LayerNorm``/``GroupNorm``: ``scale`` ↔ ``weight``; ``BatchNorm1d`` also
   ``batch_stats`` ``mean``/``var`` ↔ ``running_mean``/``running_var``;
 - ``Embedding``: ``embedding`` ↔ ``weight``;
+- ``PReLU``: flax's scalar ``negative_slope`` ↔ ``weight [1]``;
+- the attention's ``DenseGeneral`` projections (``Linear`` layers with
+  ``flax_shapes``): ``query``/``key``/``value`` kernels ``[in, heads,
+  head_dim]`` and biases ``[heads, head_dim]``, the ``out`` kernel
+  ``[heads, head_dim, out]`` ↔ the ``Linear``'s weight ``[out, in]`` and
+  bias;
+- parameters a module holds itself under their flax names
+  (``flax_leaves``): ``ActNorm``'s ``logs``/``bias`` ``(1, 1, C)`` ↔
+  ``[1, C, 1]``, ``InvConvNear.weight`` ``[S, S]``, the quantizer's
+  ``codebook`` and ``FFTBlocks``' ``pos_alpha`` as they are;
 - ``Conv2d`` (the datagen networks: BiSeNet, FAN, ReconNet): kernel
   ``HWIO`` ↔ weight ``OIHW``; ``BatchNorm2d`` as ``BatchNorm1d``.
   :func:`load_flax_npz` reads the flattened ``.npz`` (``params/…``,
@@ -206,12 +216,18 @@ def _subtree(tree: dict, path: list):
 
 
 def _module_leaves(model: nn.Module):
-    """``(flax path, module)`` of every module holding parameters."""
+    """``(flax path, module)`` of every module holding parameters: the
+    layer types below, and any module that names its own parameters in
+    ``flax_leaves``."""
     kinds = (nn.Conv1d, nn.ConvTranspose1d, nn.Conv2d, nn.Linear, nn.LayerNorm, nn.GroupNorm,
-             nn.BatchNorm1d, nn.BatchNorm2d, nn.Embedding)
+             nn.BatchNorm1d, nn.BatchNorm2d, nn.Embedding, nn.PReLU)
     for name, m in model.named_modules():
-        if isinstance(m, kinds):
-            yield name.split("."), m
+        if isinstance(m, kinds) or hasattr(m, "flax_leaves"):
+            yield (name.split(".") if name else []), m
+
+
+def _join(path: list, attr: str) -> str:
+    return ".".join(path + [attr])
 
 
 def load_flax_variables(model: nn.Module, variables: dict, assign: bool = False) -> nn.Module:
@@ -224,17 +240,17 @@ def load_flax_variables(model: nn.Module, variables: dict, assign: bool = False)
     stats = variables.get("batch_stats", {})
     sd, used = {}, 0
     for path, m in _module_leaves(model):
-        # torch, not numpy, makes the transposed copies (several times faster
-        # on large kernels)
-        p = {k: torch.as_tensor(np.asarray(v)) for k, v in _subtree(params, path).items()}
-        pre = ".".join(path)
-        leaf, _, from_flax = _kernel_maps(m)
-        sd[f"{pre}.weight"] = from_flax(p[leaf])
-        if "bias" in p:
-            sd[f"{pre}.bias"] = p["bias"]
-        used += len(p)
+        node = _subtree(params, path)
+        for attr, leaf, _, from_flax in _leaf_maps(m):
+            if leaf not in node:
+                continue
+            # torch, not numpy, makes the transposed copies (several times
+            # faster on large kernels)
+            sd[_join(path, attr)] = from_flax(torch.as_tensor(np.asarray(node[leaf])))
+            used += 1
         if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
             s = _subtree(stats, path)
+            pre = ".".join(path)
             sd[f"{pre}.running_mean"] = torch.as_tensor(np.asarray(s["mean"]))
             sd[f"{pre}.running_var"] = torch.as_tensor(np.asarray(s["var"]))
             sd[f"{pre}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
@@ -263,7 +279,7 @@ def flax_variables(model: nn.Module) -> dict:
 
 
 def _kernel_maps(m: nn.Module) -> tuple:
-    """(flax leaf of ``m.weight``, torch → flax, flax → torch) for a module
+    """(flax leaf of ``m.weight``, torch → flax, flax → torch) for a layer
     of :func:`_module_leaves`."""
     if isinstance(m, nn.ConvTranspose1d):
         return ("kernel", lambda w: w.permute(2, 0, 1).flip(0),
@@ -272,11 +288,41 @@ def _kernel_maps(m: nn.Module) -> tuple:
         return "kernel", lambda w: w.permute(2, 1, 0), lambda k: k.permute(2, 1, 0)
     if isinstance(m, nn.Conv2d):
         return "kernel", lambda w: w.permute(2, 3, 1, 0), lambda k: k.permute(3, 2, 0, 1)
+    if isinstance(m, nn.Linear) and hasattr(m, "flax_shapes"):
+        # a DenseGeneral (the attention's projections): the kernel is the
+        # Linear's [in, out] with its in or out axis split into heads
+        shape = m.flax_shapes["kernel"]
+        return ("kernel", lambda w: w.T.reshape(shape),
+                lambda k: k.reshape(m.in_features, m.out_features).T)
     if isinstance(m, nn.Linear):
         return "kernel", lambda w: w.T, lambda k: k.T
     if isinstance(m, nn.Embedding):
         return "embedding", lambda w: w, lambda k: k
+    if isinstance(m, nn.PReLU):  # flax's scalar negative_slope
+        return "negative_slope", lambda w: w.reshape(()), lambda k: k.reshape(1)
     return "scale", lambda w: w, lambda k: k
+
+
+def _leaf_maps(m: nn.Module) -> list:
+    """``[(torch attribute, flax leaf, torch → flax, flax → torch)]`` of a
+    module of :func:`_module_leaves`. A module with ``flax_leaves``
+    (``{attribute: flax shape}``) holds its parameters under their flax
+    names (``ActNorm``'s ``logs``/``bias``, ``InvConvNear.weight``, the
+    quantizer's ``codebook``, ``pos_alpha``), reshaped between the layouts."""
+    if hasattr(m, "flax_leaves"):
+        return [(a, a, (lambda t, s=s: t.reshape(s)),
+                 (lambda k, a=a: k.reshape(getattr(m, a).shape)))
+                for a, s in m.flax_leaves.items()]
+    leaf, to_flax, from_flax = _kernel_maps(m)
+    out = [("weight", leaf, to_flax, from_flax)]
+    if getattr(m, "bias", None) is not None:
+        shape = getattr(m, "flax_shapes", {}).get("bias")
+        if shape is None:
+            out.append(("bias", "bias", lambda b: b, lambda b: b))
+        else:
+            out.append(("bias", "bias", lambda b: b.reshape(shape),
+                        lambda b: b.reshape(m.bias.shape)))
+    return out
 
 
 def flax_param_tree(model: nn.Module, values: dict) -> dict:
@@ -285,18 +331,14 @@ def flax_param_tree(model: nn.Module, values: dict) -> dict:
     the layout :func:`flax_variables` gives the parameters themselves."""
     tree: dict = {}
     for path, m in _module_leaves(model):
-        pre = ".".join(path)
-        leaf, to_flax, _ = _kernel_maps(m)
-        for attr, name in (("weight", leaf), ("bias", "bias")):
-            t = values.get(f"{pre}.{attr}")
+        for attr, leaf, to_flax, _ in _leaf_maps(m):
+            t = values.get(_join(path, attr))
             if t is None:
                 continue
-            if attr == "weight":
-                t = to_flax(t.detach())
             node = tree
             for p in path:
                 node = node.setdefault(p, {})
-            node[name] = np.array(t.detach().cpu().numpy(), order="C")
+            node[leaf] = np.array(to_flax(t.detach()).cpu().numpy(), order="C")
     return {"params": tree}
 
 
@@ -310,12 +352,9 @@ def param_values_from_flax(model: nn.Module, tree: dict) -> dict:
             node = _subtree(params, path)
         except KeyError:
             continue
-        pre = ".".join(path)
-        leaf, _, from_flax = _kernel_maps(m)
-        if leaf in node:
-            out[f"{pre}.weight"] = from_flax(torch.as_tensor(np.asarray(node[leaf]))).numpy()
-        if "bias" in node:
-            out[f"{pre}.bias"] = np.asarray(node["bias"])
+        for attr, leaf, _, from_flax in _leaf_maps(m):
+            if leaf in node and not isinstance(node[leaf], dict):
+                out[_join(path, attr)] = from_flax(torch.as_tensor(np.asarray(node[leaf]))).numpy()
     return {k: np.array(v, order="C") for k, v in out.items()}
 
 

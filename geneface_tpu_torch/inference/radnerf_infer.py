@@ -207,27 +207,50 @@ class RADNeRFInfer:
         conds = ds.conds if conds is None else conds
         item = ds[i % len(ds)]
         cond = get_cond_window(conds, i, self.cfg.get("smo_win_size", 5))
+        bg = item["bg_img"] if self.torso else item["bg_torso_img"]
+        return self.render_rays(
+            *(torch.as_tensor(item[k], device=dev) for k in ("rays_o", "rays_d")),
+            torch.as_tensor(bg, device=dev),
+            torch.as_tensor(item["bg_coords"], device=dev) if self.torso else None, cond,
+            torch.as_tensor(item["pose"], device=dev), 0,
+            ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop,
+            torso_mask=self.torso_mask)
+
+    @torch.inference_mode()
+    def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor, bg: torch.Tensor,
+                    bg_coords: torch.Tensor | None, cond_wins, pose6: torch.Tensor,
+                    ind_index: int = 0, *, ray_capacity: int | None = None,
+                    cull_kdop: tuple | None = None, torso_mask: torch.Tensor | None = None,
+                    dt_gamma: float | None = None, max_steps: int | None = None,
+                    T_thresh: float | None = None) -> dict:
+        """Render any rays (the JAX ``_render_frame``) after :meth:`prepare`:
+        ``rays_o``/``rays_d`` [N, 3], the background ``bg`` [N, 3] (under
+        the head, or under the torso), the torso's screen coordinates
+        ``bg_coords`` [N, 2], the condition window, the head pose ``pose6``,
+        the individual code ``codes[ind_index % n]`` (the torso's code stays
+        its first, as in the JAX package), the cull's ``ray_capacity`` and
+        ``cull_kdop``, the torso mask (``None``: sampled from the torso grid
+        at ``bg_coords`` here) and the render knobs ``dt_gamma``,
+        ``max_steps``, ``T_thresh`` (``None``: the config's) → the
+        renderer's output dict."""
         model = self.model
-        cond_feat = model.cal_cond_feat(torch.as_tensor(cond, device=dev))
+        cond_feat = model.cal_cond_feat(torch.as_tensor(cond_wins, device=self.device))
         codes = model.individual_embeddings
-        ind = codes[0] if codes is not None else None
+        ind = codes[int(ind_index) % codes.shape[0]] if codes is not None else None
         tables = self._tables
 
         def field_fn(xyz, dirs):
             return model(xyz, dirs, cond_feat, ind, tables)
 
-        rays = (torch.as_tensor(item["rays_o"], device=dev),
-                torch.as_tensor(item["rays_d"], device=dev))
-        cull = dict(ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop)
+        knobs = {k: v for k, v in (("dt_gamma", dt_gamma), ("max_steps", max_steps),
+                                   ("T_thresh", T_thresh)) if v is not None}
+        kwargs = dict(self.render_kwargs, ray_capacity=ray_capacity, cull_kdop=cull_kdop,
+                      **{k: type(self.render_kwargs[k])(v) for k, v in knobs.items()})
         if not self.torso:
-            out = render_rays_radnerf(
-                field_fn, *rays, self._occ_view,
-                bg_color=torch.as_tensor(item["bg_torso_img"], device=dev),
-                **cull, **self.render_kwargs,
-            )
+            out = render_rays_radnerf(field_fn, rays_o, rays_d, self._occ_view, bg_color=bg,
+                                      **kwargs)
             self.last_render = out
             return out
-        pose6 = torch.as_tensor(item["pose"], device=dev)
         t_codes = model.torso_individual_codes
         t_ind = t_codes[0] if t_codes is not None else None
 
@@ -235,11 +258,9 @@ class RADNeRFInfer:
             return model.forward_torso(xy, pose6, t_ind, head_rgb, head_ws, self._torso_tables)
 
         out = render_rays_radnerf_torso(
-            field_fn, torso_fn, *rays,
-            torch.as_tensor(item["bg_coords"], device=dev), self._occ_view, self.torso_occ,
+            field_fn, torso_fn, rays_o, rays_d, bg_coords, self._occ_view, self.torso_occ,
             density_thresh_torso=float(self.cfg.get("density_thresh_torso", 0.01)),
-            bg_color=torch.as_tensor(item["bg_img"], device=dev),
-            torso_mask=self.torso_mask, **cull, **self.render_kwargs,
+            bg_color=bg, torso_mask=torso_mask, **kwargs,
         )
         self.last_render = out
         return out

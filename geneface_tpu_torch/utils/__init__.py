@@ -10,6 +10,11 @@ from geneface_tpu_torch.utils.checkpoint import (
     restore_partial,
     save_checkpoint,
 )
+from geneface_tpu_torch.utils.multiprocess import (
+    MultiprocessManager,
+    multiprocess_run,
+    multiprocess_run_tqdm,
+)
 
 __all__ = [
     "convert_poses",
@@ -20,4 +25,7 @@ __all__ = [
     "load_checkpoint",
     "restore_partial",
     "save_checkpoint",
+    "MultiprocessManager",
+    "multiprocess_run",
+    "multiprocess_run_tqdm",
 ]

@@ -19,7 +19,9 @@ encoders of the import layout are held so too); a float32 frame (head, or
 head+torso) on the card vs the CPU — 1e-5 absolute per pixel; the datagen
 splat's weights and colours (K1 sums in another order) and its gradients
 (K8 adjoint) 1e-5 of max, the datagen networks' outputs 1e-5 of max |CPU|
-(TF32 off); the vanilla NeRF's render (the CPU on the card's importance
+(TF32 off); the viewer's float32 frame at rungs 1.0 and 0.5, head and
+head+torso — 1e-5 absolute per pixel, the uint8 frame within one level;
+the vanilla NeRF's render (the CPU on the card's importance
 samples) 1e-5 absolute per pixel, its gradients 1e-4 relative L2; two
 gloo ranks sharing the card against one rank — each step's loss rel 1e-3,
 its gradients 0.1 relative L2 (``chip_smoke.py``'s card bounds); the
@@ -397,6 +399,38 @@ def test_torso_frame_on_card_matches_cpu(card, tmp_path):
                                rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("torso", [False, True], ids=["head", "torso"])
+@pytest.mark.parametrize("rung", [1.0, 0.5])
+def test_viewer_frame_on_card_matches_cpu(card, tmp_path, torso, rung):
+    """``RealtimeRenderer.render`` at an orbit pose, a ladder rung, knob
+    overrides and individual code 1, on the card against the CPU."""
+    import chip_smoke
+    from geneface_tpu_torch.inference import OrbitCamera, RADNeRFInfer, RealtimeRenderer
+
+    cfg = chip_smoke.write_scene(str(tmp_path), hw=128, n_frames=4)
+    cfg = chip_smoke.torso_cfg(cfg) if torso else cfg
+    out = {}
+    for dev in (card, "cpu"):
+        r = RealtimeRenderer(RADNeRFInfer(cfg, device=dev, dtype=torch.float32))
+        r.downscale_override, r.ind_index, r.cond_index = rung, 1, 2
+        r.max_steps, r.t_thresh = 12, 1e-3
+        ds = r.ds
+        cam = OrbitCamera(ds.W, ds.H)
+        cam.update_intrinsics(ds.intrinsics)
+        cam.update_pose(np.asarray(ds.poses[0]))
+        cam.orbit(30.0, -10.0)
+        before = dict(LAUNCHES)
+        frame = r.render(cam)
+        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+        out[str(dev)] = (frame, r.infer.last_render["rgb_map"].cpu(), launched)
+    (gf, grgb, glaunch), (cf, crgb, claunch) = out["cuda"], out["cpu"]
+    assert gf.shape == (int(128 * rung) // 8 * 8,) * 2 + (3,)
+    assert glaunch["scatter_add_rows"] >= 1 and glaunch["gather_rows"] >= 4
+    assert claunch == {k: 0 for k in LAUNCHES}
+    torch.testing.assert_close(grgb, crgb, rtol=0, atol=1e-5)
+    assert np.abs(gf.astype(int) - cf.astype(int)).max() <= 1
+
+
 def test_clip_gathers_on_card_match_cpu(card):
     """Stage A's clip gathers (K8) and the mouth clips' adjoint (K1) on the
     card: the clips exact, the mouth gradient within the float32 rounding
@@ -649,3 +683,18 @@ def test_native_loader_feeds_a_card_step(card, tmp_path):
     torch.cuda.synchronize()
     assert np.isfinite(float(out["total_loss"]))
     assert all(LAUNCHES[k] > before[k] for k in before)
+
+
+def test_tsne_on_card_matches_cpu(card):
+    """``tsne``'s default device is the card: its float64 descent there
+    against the CPU's on the input of ``test_torch_utils_misc.py``, within
+    the 1e-9 of the embedding's magnitude that file holds it to against the
+    JAX one after 10 iterations."""
+    from geneface_tpu_torch.utils import visualization
+
+    rng = np.random.RandomState(0)
+    x = np.concatenate([rng.normal(0, 0.05, (40, 8)), rng.normal(3, 0.05, (40, 8))])
+    want = visualization.tsne(x, perplexity=10, n_iter=10, seed=0, device="cpu")
+    got = visualization.tsne(x, perplexity=10, n_iter=10, seed=0)
+    assert got.dtype == np.float32 and got.shape == (80, 2)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9 * np.abs(want).max())

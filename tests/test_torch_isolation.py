@@ -114,6 +114,45 @@ def test_walk_covers_asr_and_pose():
     assert jax_tasks and jax_tasks <= set(TASKS), sorted(jax_tasks - set(TASKS))
 
 
+#: JAX modules whose counterparts in the port have other names or places
+RENAMED = {"ops/pallas_scatter.py": ("ops/scatter.py", "csrc/scatter_add_rows.cu")}
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every ``.py`` under ``geneface_tpu/`` has a file at the same relative
+    path in ``geneface_tpu_torch/`` (or the renamed ones of ``RENAMED``): a
+    JAX module added without its port fails here."""
+    jax_root = os.path.join(REPO, "geneface_tpu")
+    port_root = os.path.join(REPO, "geneface_tpu_torch")
+    missing = []
+    for d, _, files in os.walk(jax_root):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            rel = os.path.relpath(os.path.join(d, f), jax_root)
+            want = RENAMED.get(rel, (rel,))
+            missing += [f"{rel} -> {w}" for w in want
+                        if not os.path.isfile(os.path.join(port_root, w))]
+    assert not missing, missing
+
+
+def test_walk_covers_the_viewer_and_last_modules():
+    """The viewer, the audio2motion models and the utilities of the last
+    slice are among the modules imported above."""
+    mods = set(_port_modules())
+    for name in ("inference.gui", "models.audio2motion.cnn_models",
+                 "models.audio2motion.transformer", "models.audio2motion.vqvae",
+                 "models.audio2motion.discriminators", "models.audio2motion.flow",
+                 "utils.face3d", "utils.multiprocess", "utils.visualization"):
+        assert f"geneface_tpu_torch.{name}" in mods, name
+    from geneface_tpu_torch.inference import NeRFGUI, NeRFWebGUI, OrbitCamera, RealtimeRenderer
+    from geneface_tpu_torch.models.audio2motion import Discriminator, Glow
+    from geneface_tpu_torch.utils import multiprocess_run
+
+    assert all((NeRFGUI, NeRFWebGUI, OrbitCamera, RealtimeRenderer, Discriminator, Glow,
+                multiprocess_run))
+
+
 def test_datagen_path_runs_without_opencv_or_pillow(tmp_path):
     """The card's host has neither OpenCV nor Pillow: with both made
     unimportable, the datagen path from frames in memory to the store runs

@@ -2,12 +2,21 @@
 
 ``run_ranks(job, spec, world, tmp)`` starts ``world`` processes of this
 file with torchrun's environment (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``,
-``MASTER_ADDR`` 127.0.0.1 and a free ``MASTER_PORT``); each joins the
+``MASTER_ADDR`` 127.0.0.1 and ``MASTER_PORT``); each joins the
 group through :func:`geneface_tpu_torch.parallel.initialize_distributed`
 with ``device="cpu"`` (or ``cuda:0``), runs ``JOBS[job](spec)`` and pickles the result to
 ``<tmp>/out_<rank>.pkl``. The parent waits with a timeout and returns the
-results in rank order. The same step functions run in the parent's process
-without a process group, which gives the one-rank reference.
+results in rank order.
+
+The parent holds the group's key-value store itself, bound to a port the
+system picks, for the whole run, and the ranks join it as clients (torch's
+``TORCHELASTIC_USE_AGENT_STORE``, as under torchrun's agent). A port that
+was picked, released and handed to rank 0 a few seconds later could be
+taken in between by a socket of another test's ranks (the suite runs in
+parallel workers): a rank then joined the wrong group, or a stray
+connection broke another group's rank ("Connection closed by peer").
+The same step functions run in the parent's process without a process
+group, which gives the one-rank reference.
 
 Imports no JAX: the ranks start from a fresh interpreter.
 """
@@ -16,12 +25,13 @@ from __future__ import annotations
 
 import os
 import pickle
-import socket
 import subprocess
 import sys
+from datetime import timedelta
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 if REPO not in sys.path:
@@ -30,29 +40,20 @@ if REPO not in sys.path:
 from geneface_tpu_torch import parallel  # noqa: E402
 
 
-def free_port() -> int:
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def run_ranks(job: str, spec: dict, world: int, tmp: str, timeout: float = 240.0,
               device: str = "cpu") -> list:
     """Run ``JOBS[job](spec)`` on ``world`` gloo ranks → their results;
     ``device`` ``cuda:0``: the ranks share the card under gloo
-    (``GF_DIST_BACKEND``). A port that another process took between its
-    pick and rank 0's bind is picked again, once."""
+    (``GF_DIST_BACKEND``)."""
     os.makedirs(tmp, exist_ok=True)
     spec_path = os.path.join(tmp, "spec.pkl")
     with open(spec_path, "wb") as f:
         pickle.dump({"job": job, "spec": spec, "device": device}, f)
-    for attempt in (0, 1):
-        codes, logs = _start_ranks(spec_path, tmp, world, timeout)
-        if all(c == 0 for c in codes):
-            break
-        if attempt or not any("EADDRINUSE" in x or "address already in use" in x for x in logs):
-            bad = next(r for r, c in enumerate(codes) if c != 0)
-            raise RuntimeError(f"rank {bad} exited with {codes[bad]}:\n{logs[bad][-6000:]}")
+    codes, logs = _start_ranks(spec_path, tmp, world, timeout)
+    if any(c != 0 for c in codes):
+        bad = [r for r, c in enumerate(codes) if c != 0]
+        raise RuntimeError("\n".join(f"rank {r} exited with {codes[r]}:\n{logs[r][-6000:]}"
+                                     for r in bad))
     out = []
     for r in range(world):
         with open(os.path.join(tmp, f"out_{r}.pkl"), "rb") as f:
@@ -61,14 +62,16 @@ def run_ranks(job: str, spec: dict, world: int, tmp: str, timeout: float = 240.0
 
 
 def _start_ranks(spec_path: str, tmp: str, world: int, timeout: float) -> tuple:
-    """Start the ranks on a free port and wait for them → (exit codes,
-    outputs); a rank that outlives ``timeout`` is killed."""
-    port = free_port()
+    """Host the group's store on a port of the system's choosing, start the
+    ranks as its clients and wait for them → (exit codes, outputs); a rank
+    that outlives ``timeout`` is killed."""
+    store = dist.TCPStore("127.0.0.1", 0, world, is_master=True, wait_for_workers=False,
+                          timeout=timedelta(seconds=timeout))
     procs = []
     for r in range(world):
         e = dict(os.environ, WORLD_SIZE=str(world), RANK=str(r), LOCAL_RANK=str(r),
-                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                 GF_DIST_BACKEND="gloo")
+                 MASTER_ADDR="127.0.0.1", MASTER_PORT=str(store.port), OMP_NUM_THREADS="1",
+                 GF_DIST_BACKEND="gloo", TORCHELASTIC_USE_AGENT_STORE="True")
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), spec_path, tmp],
             env=e, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -81,6 +84,7 @@ def _start_ranks(spec_path: str, tmp: str, world: int, timeout: float) -> tuple:
             if p.poll() is None:
                 p.kill()
                 p.wait()
+        del store
     return [p.returncode for p in procs], logs
 
 
