@@ -264,11 +264,9 @@ def write_scene(root: str, hw: int, n_frames: int, seed: int = 0) -> dict:
     """Synthetic dataset + a seeded random checkpoint in the JAX layout."""
     import torch
 
-    sys.path.insert(0, REPO)
-    from tools.make_synthetic_dataset import make_dataset
-
     from geneface_tpu_torch.convert import state_dict_to_flax
     from geneface_tpu_torch.models.radnerf import model_from_cfg
+    from geneface_tpu_torch.tools.make_synthetic_dataset import make_dataset
     from geneface_tpu_torch.utils.checkpoint import save_checkpoint
 
     data, work = os.path.join(root, "data"), os.path.join(root, "work")
@@ -647,15 +645,32 @@ def measure_scatter(rows, updates, n_rows, exact: bool, spread: bool = False) ->
     }
 
 
-def misdispatched(site: dict) -> str | None:
+def misdispatched(site: dict, times: dict | None = None) -> str | None:
     """A message if another variant that takes the site's shape beat the
-    dispatcher's choice by more than 10% and 2 µs."""
-    best = min(site["variants"], key=site["variants"].get)
-    ms, best_ms = site["ms"], site["variants"][best]
+    dispatcher's choice by more than 10% and 2 µs; ``times`` (``{variant:
+    ms}``) by default the profiler's, ``site["variants"]``."""
+    times = times or site["variants"]
+    best = min(times, key=times.get)
+    ms, best_ms = times[site["variant"]], times[best]
     if ms > 1.1 * best_ms and ms - best_ms > 0.002:
         return (f"{site['site']}: pick_scatter_variant chose {site['variant']} "
                 f"({ms:.4f} ms) but {best} takes {best_ms:.4f} ms")
     return None
+
+
+def events_variants(site: dict, rows, updates, n_rows) -> dict:
+    """The dispatcher's choice and the variant that the profiler puts ahead
+    of it, timed again on the site's captured call by
+    :func:`queued_events_ms` in turns, the median of three each."""
+    from geneface_tpu_torch.ops import scatter as sc
+
+    best = min(site["variants"], key=site["variants"].get)
+    rounds = {site["variant"]: [], best: []}
+    for _ in range(3):
+        for v in rounds:
+            rounds[v].append(queued_events_ms(
+                lambda v=v: sc.launch_scatter_add_rows(rows, updates, n_rows, variant=v)))
+    return {v: sorted(t)[1] for v, t in rounds.items()}
 
 
 def measure_gather(table, idx) -> dict:
@@ -760,7 +775,7 @@ def name_sites(calls, grids: dict, path: str) -> dict:
 
 def measure_sites(sites: dict, per_call: dict) -> list:
     """Time every site; ``per_call[site]`` = launches per step or frame."""
-    out = []
+    out, wrong = [], []
     for site, (kernel, kind, args, kw) in sites.items():
         if kernel == "gather_rows":
             m = measure_gather(*args)
@@ -769,6 +784,20 @@ def measure_sites(sites: dict, per_call: dict) -> list:
             m = measure_scatter(*args, exact=exact, **kw)
         m.update(site=site, kernel=kernel, launches_per_call=per_call.get(site, 1))
         out.append(m)
+        if kernel == "scatter_add_rows" and misdispatched(m):
+            # a profiler window can lose records without a count going short,
+            # and a variant of several kernels then reads below what its
+            # kernels can take: the two variants are timed again by CUDA
+            # events, which lose no launch, and the site is wrong only where
+            # both clocks say so
+            m["variants_events"] = events_variants(m, *args[:3])
+            w = misdispatched(m, m["variants_events"])
+            print(f"site {site}: the profiler's times put {m['variant']} behind; CUDA "
+                  "events " + json.dumps({v: round(t, 4) for v, t in
+                                          m["variants_events"].items()})
+                  + (" agree" if w else " do not"))
+            if w:
+                wrong.append(w)
         bound = max(m["bytes_ms"], m["ops_ms"])
         how = (f"variant {m['variant']}, all " + json.dumps(
             {v: round(t, 4) for v, t in m["variants"].items()})
@@ -776,7 +805,6 @@ def measure_sites(sites: dict, per_call: dict) -> list:
         print(f"site {site} [{m['M']}, {m['W']}] x [{m['n_rows']}, {m['W']}]: {kernel} "
               f"{m['ms']:.4f} ms ({how}); bound {bound:.4f}, plain {m['plain_ms']:.4f}, "
               f"library {m['library_ms']:.4f}")
-    wrong = [w for w in (misdispatched(m) for m in out if "variants" in m) if w]
     if wrong:
         raise AssertionError("the dispatcher's table is wrong: " + "; ".join(wrong))
     behind = [f"{m['site']} {m['ms']:.4f} ms vs {m['library_ms']:.4f}" for m in out
@@ -901,6 +929,25 @@ def n_grid_groups(model) -> tuple:
     return head, torso
 
 
+def frame_vs_cpu(infer, cfg: dict, path: str) -> dict:
+    """Frame 0 on the card against the port's plain CPU path (same
+    checkpoint, same dtype, the same ray capacity): max abs 1e-3, mean abs
+    1e-6 (bf16 MLPs on both sides: a hidden unit may round the other way)."""
+    from geneface_tpu_torch.inference import RADNeRFInfer
+
+    cpu = RADNeRFInfer(cfg, device="cpu")
+    cpu.prepare()
+    t = time.perf_counter()
+    ref = cpu.render_frame(0)["rgb_map"]
+    cpu_s = time.perf_counter() - t
+    diff = (infer.render_frame(0)["rgb_map"].cpu() - ref).abs()
+    res = {"max_abs": float(diff.max()), "mean_abs": float(diff.mean()), "cpu_s": cpu_s}
+    if cpu.ray_capacity != infer.ray_capacity or not (
+            res["max_abs"] <= 1e-3 and res["mean_abs"] <= 1e-6):
+        raise AssertionError(f"{path}: card frame vs CPU plain path {res}")
+    return res
+
+
 def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
     """A serving path: 4 frames through ``RADNeRFInfer.render_frames`` (the
     head's checkpoint, or with ``cfg`` from :func:`torso_cfg` the torso's),
@@ -977,18 +1024,9 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
           f"(hit rays: {int((n_samples > 0).sum())})")
 
     # frame vs the port's plain CPU path (same checkpoint, same dtype)
-    cpu = RADNeRFInfer(cfg, device="cpu")
-    cpu.prepare()
-    if cpu.ray_capacity != infer.ray_capacity:
-        raise AssertionError(f"{path}: capacity {cpu.ray_capacity} on CPU vs {C}")
-    ref = cpu.render_frame(0)["rgb_map"]
-    gpu = infer.render_frame(0)["rgb_map"].cpu()
-    diff = (gpu - ref).abs()
-    print(f"{path}: frame 0 vs CPU plain path: max abs {float(diff.max()):.3e}, "
-          f"mean abs {float(diff.mean()):.3e}")
-    # bf16 MLPs on both sides: a hidden unit may round the other way
-    if float(diff.max()) > 1e-3 or float(diff.mean()) > 1e-6:
-        raise AssertionError(f"{path}: GPU frame disagrees with the CPU plain path")
+    vs_cpu = frame_vs_cpu(infer, cfg, path)
+    print(f"{path}: frame 0 vs CPU plain path: max abs {vs_cpu['max_abs']:.3e}, "
+          f"mean abs {vs_cpu['mean_abs']:.3e}")
 
     calls = capture_calls(lambda: infer.render_frame(0))
     sites = name_sites(calls, grid_names(infer.model), path)
@@ -998,7 +1036,7 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
           "stages ms " + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
     record = {"ms_per_frame": wall / RENDER_FRAMES * 1e3, "steady_ms": times,
               "ray_capacity": C, "sample_capacity": Mc, "profile": prof,
-              "frame_vs_cpu_max_abs": float(diff.max())}
+              "frame_vs_cpu_max_abs": vs_cpu["max_abs"]}
     return record, launches, sites
 
 
@@ -1471,7 +1509,8 @@ def cut_batch(batch: dict, n: int) -> dict:
     return {k: v[:n] for k, v in batch.items()}
 
 
-def audio_step_vs_cpu(name: str, task, lrs3: dict, person: dict) -> dict:
+def audio_step_vs_cpu(name: str, task, lrs3: dict, person: dict,
+                      path: str = "audio_train") -> dict:
     """One step of ``task`` (trained on the card) on ``AUDIO_CHECK_CLIPS``
     clips, the same mined indices and noise, on the card and on the port's
     plain CPU path (a CPU task of the same config with the card task's
@@ -1542,10 +1581,10 @@ def audio_step_vs_cpu(name: str, task, lrs3: dict, person: dict) -> dict:
                          for p in m.parameters()) for m in nets])
     (lg, gg, nz), (lc, gc, _) = out["cuda"], out["cpu"]
     if gg.keys() != gc.keys() or not gc:
-        raise AssertionError(f"audio_train.{name}: gradients of {len(gg)} tensors on the card, "
+        raise AssertionError(f"{path}.{name}: gradients of {len(gg)} tensors on the card, "
                              f"{len(gc)} on CPU")
     if not all(np.isfinite(v) for v in list(lg.values()) + list(lc.values())):
-        raise AssertionError(f"audio_train.{name}: non-finite loss {lg} / {lc}")
+        raise AssertionError(f"{path}.{name}: non-finite loss {lg} / {lc}")
     loss_err = {k: abs(lg[k] - lc[k]) / max(abs(lc[k]), 1e-30) for k in lc}
     errs = {n: float((gg[n] - g).norm() / g.norm()) if g.norm() > 0 else float(gg[n].norm())
             for n, g in gc.items()}
@@ -1555,8 +1594,8 @@ def audio_step_vs_cpu(name: str, task, lrs3: dict, person: dict) -> dict:
            "nonzero_grad_params_by_optimizer": nz,
            "activation_flips": decisions.flips, "activation_elements": decisions.elements}
     if not res["worst_loss_rel"] <= 1e-5 or not res["worst_grad_rel_l2"] <= 1e-4 or not all(nz):
-        raise AssertionError(f"audio_train.{name}: card vs CPU: {res}; all: {errs}")
-    print(f"audio_train.{name}: card vs CPU plain path on one step passed: " + json.dumps(res))
+        raise AssertionError(f"{path}.{name}: card vs CPU: {res}; all: {errs}")
+    print(f"{path}.{name}: card vs CPU plain path on one step passed: " + json.dumps(res))
     return res
 
 
@@ -2849,11 +2888,10 @@ def import_serve_phase(cfg, out_dir: str, path: str = "import_serve") -> tuple:
 def _config_args(cfg: dict, out_dir: str, path: str) -> list:
     """``--config`` of a YAML holding ``cfg``'s model keys (the tool reads a
     config file)."""
-    import yaml
+    from geneface_tpu_torch.config.config import save_config
 
-    yml = os.path.join(out_dir, f"{path}_config.yaml")
-    with open(yml, "w") as f:
-        yaml.safe_dump({k: v for k, v in cfg.items() if k not in ("data_dir", "work_dir")}, f)
+    yml = save_config({k: v for k, v in cfg.items() if k not in ("data_dir", "work_dir")},
+                      os.path.join(out_dir, f"{path}_config"))
     return ["--config", yml]
 
 
@@ -4342,11 +4380,10 @@ def _http(base: str, route: str, payload: dict | None = None) -> tuple:
 
 def _decode_frame(body: bytes, headers: dict) -> tuple:
     """A ``/frame`` answer → (the decoded JPEG [h, w, 3], its x-meta)."""
-    import cv2
-    import numpy as np
+    from geneface_tpu_torch.inference.gui import decode_jpeg
 
     meta = json.loads(headers["x-meta"])
-    img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    img = decode_jpeg(body)
     if body[:2] != b"\xff\xd8" or img is None or img.shape != (meta["h"], meta["w"], 3):
         raise AssertionError(f"/frame: not a {meta['h']}x{meta['w']} JPEG ({len(body)} bytes)")
     return img, meta
@@ -4456,9 +4493,9 @@ def gui_phase(cfg, out_dir: str, path: str = "gui") -> tuple:
             if "torso_alpha_map" in last:
                 empty &= last["torso_alpha_map"][:, 0] == 0
             empty = empty.reshape(meta["h"], meta["w"]).cpu().numpy()
-            bgr = img[empty].mean(0) if empty.any() else None
-            if meta["h"] != HW // 2 or bgr is None or not (bgr[2] > 150 and bgr[0] < 80):
-                raise AssertionError(f"{path}: the 0.5 rung on red gave {meta}, {bgr}")
+            rgb = img[empty].mean(0) if empty.any() else None
+            if meta["h"] != HW // 2 or rgb is None or not (rgb[0] > 150 and rgb[2] < 80):
+                raise AssertionError(f"{path}: the 0.5 rung on red gave {meta}, {rgb}")
             _http(base, "/state", {"bg_color": None})
             http = {}
             for rung in GUI_RUNGS:
@@ -4733,6 +4770,366 @@ def a2m_models_phase(cfg, out_dir: str, path: str = "a2m_models") -> tuple:
     return record, launches, {}
 
 
+#: the options path: the grid compute dtypes (``grid_compute_dtype``,
+#: ``grid_bwd_dtype``) beside the float32 default, the bound-2 scene (two
+#: cascades, the walk), stage A's options; frames and steps per setting
+OPTION_MODES = (("f32", "same"), ("bf16", "bf16"), ("mixed", "same"))
+OPTION_FRAMES = 2
+OPTION_STEPS = 6
+OPTION_BOUND = 2
+OPTION_AUDIO_STEPS = 4
+OPTION_RANK_STEPS = 2
+#: rays of the walk's card-vs-CPU check (every 16th ray of a 512² frame)
+OPTION_WALK_STRIDE = 16
+
+
+def write_bound_checkpoint(cfg: dict, seed: int = 0) -> dict:
+    """The head at ``bound: 2``: the same seeded widths, a planted ball of
+    occupied cells in both cascades → its config."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.convert import state_dict_to_flax
+    from geneface_tpu_torch.models.radnerf import model_from_cfg
+    from geneface_tpu_torch.utils.checkpoint import save_checkpoint
+
+    bcfg = dict(cfg, bound=OPTION_BOUND,
+                work_dir=os.path.join(os.path.dirname(cfg["work_dir"]), "work_bound2"))
+    model = model_from_cfg(bcfg)
+    model.reset_parameters(torch.Generator().manual_seed(seed))
+    density, occ, mean = planted_occupancy(cfg["grid_size"], cfg["density_thresh"])
+    C = 1 + int(np.ceil(np.log2(OPTION_BOUND)))
+    save_checkpoint(os.path.join(bcfg["work_dir"], "model_ckpt_steps_0.ckpt"), {"state": {
+        "params": state_dict_to_flax(model.state_dict()),
+        "occ": (np.repeat(density, C, 0), np.repeat(occ, C, 0), mean)}, "step": 0})
+    return bcfg
+
+
+def option_frames(infer, n: int) -> dict:
+    """``render_frames(n)`` (wall per frame, per-video set-up included) and
+    three steady ``render_frame`` calls."""
+    import torch
+
+    t = time.perf_counter()
+    frames = infer.render_frames(n)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t) / n * 1e3
+    steady = []
+    for _ in range(3):
+        ts = time.perf_counter()
+        infer.render_frame(0)
+        torch.cuda.synchronize()
+        steady.append((time.perf_counter() - ts) * 1e3)
+    if frames.shape != (n, HW, HW, 3) or not torch.isfinite(infer.last_render["rgb_map"]).all():
+        raise AssertionError(f"options: frames {frames.shape}")
+    return {"ms_per_frame": wall, "steady_ms": sorted(steady)[1]}
+
+
+def option_steps(task, n: int) -> dict:
+    """``n`` training steps (a sweep at the first): ms per step, the median
+    of the steps without a sweep."""
+    import numpy as np
+    import torch
+
+    batches = task.train_batches()
+    ms, losses = [], []
+    for _ in range(n):
+        b = next(batches)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        out = task.train_step(b)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - ts) * 1e3)
+        losses.append(float(out["total_loss"]))
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"options: non-finite losses {losses}")
+    return {"step_ms": ms, "median_step_ms": sorted(ms[1:])[len(ms[1:]) // 2], "losses": losses}
+
+
+def walk_vs_cpu(infer, path: str) -> dict:
+    """The walk of the bound-2 grid on the card's rays of frame 0 (every
+    ``OPTION_WALK_STRIDE``-th ray, seeded jitter) against the CPU walk: the
+    samples bit for bit."""
+    import torch
+
+    from geneface_tpu_torch.models.radnerf import make_aabb
+    from geneface_tpu_torch.ops import march_rays_train, near_far_from_aabb
+
+    item = infer.dataset[0]
+    kw = {k: infer.render_kwargs[k] for k in ("bound", "dt_gamma", "max_steps", "grid_size")}
+    ro = torch.as_tensor(item["rays_o"][::OPTION_WALK_STRIDE]).float()
+    rd = torch.as_tensor(item["rays_d"][::OPTION_WALK_STRIDE]).float()
+    noise = torch.rand(ro.shape[0], generator=torch.Generator().manual_seed(7))
+    out = {}
+    for dev in (infer.device, "cpu"):
+        dev = torch.device(dev)
+        args = [x.to(dev) for x in (ro, rd)]
+        near, far = near_far_from_aabb(*args, make_aabb(kw["bound"], dev),
+                                       infer.render_kwargs["min_near"])
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out[dev.type] = march_rays_train(*args, infer.occ_grid.to(dev), near, far,
+                                         noise.to(dev), **kw)
+        torch.cuda.synchronize()
+        out[dev.type + "_ms"] = (time.perf_counter() - t) * 1e3
+    g, c = out[infer.device.type], out["cpu"]
+    same = all(torch.equal(getattr(g, k).cpu(), getattr(c, k))
+               for k in ("valid", "ts", "dts", "depth_ts"))
+    # the cascade each sample read: the larger of its position's and its
+    # step's binary exponents (the walk's rule), clipped to the cascades
+    C, H = infer.occ_grid.shape[0], kw["grid_size"]
+    pos = (ro[:, None] + c.ts[..., None] * rd[:, None]).abs().amax(-1)
+    level = torch.maximum(torch.frexp(pos.clamp(min=1e-30)).exponent.clamp(0, C - 1),
+                          torch.frexp((c.dts * H * 0.5).clamp(min=1e-30)).exponent.clamp(0, C - 1))
+    per_level = [int((c.valid & (level == k)).sum()) for k in range(C)]
+    res = {"rays": int(ro.shape[0]), "samples": int(c.valid.sum()),
+           "samples_per_cascade": per_level,
+           "walk_ms_card": out[infer.device.type + "_ms"], "walk_ms_cpu": out["cpu_ms"]}
+    if not same or not any(per_level[1:]):
+        raise AssertionError(f"{path}: the walk on the card differs from the CPU walk, or "
+                             f"reads no outer cascade: {res}")
+    return res
+
+
+def options_rank(rank: int, world: int, port: int, spec_path: str, out_dir: str) -> None:
+    """One rank of the options path's stage-A mesh (``mp.spawn``): join the
+    gloo group on ``cuda:0``, run ``OPTION_RANK_STEPS`` steps of SyncNet (at
+    ``bn``), the VAE and audio2pose on the same batches → the parameters
+    and launches, ``<out_dir>/options_rank<rank>.pt``."""
+    import torch
+
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), GF_DIST_BACKEND="gloo")
+    from geneface_tpu_torch import parallel
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.run import resolve_task
+
+    dev = parallel.initialize_distributed("cuda:0")
+    spec = torch.load(spec_path, weights_only=False)
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    out = {"params": {}, "losses": {}}
+    for name, (tcfg, batches) in spec.items():
+        task = resolve_task(tcfg["task_cls"])(tcfg, device=dev)
+        task.setup_mesh()
+        task.build()
+        task.place_state()
+        if parallel.data_size(task.mesh) != world:
+            raise AssertionError(f"options.{name}: the task's mesh is not the {world} ranks")
+        out["losses"][name] = [{k: float(v) for k, v in task.train_step(b).items()}
+                               for b in batches]
+        out["params"][name] = {n: p.detach().cpu() for n, p in task.model.named_parameters()}
+    torch.cuda.synchronize()
+    out["launches"] = dict(LAUNCHES)
+    torch.save(out, os.path.join(out_dir, f"options_rank{rank}.pt"))
+    torch.distributed.destroy_process_group()
+
+
+def options_phase(cfg, out_dir: str, path: str = "options") -> tuple:
+    """The options the port once refused, at the serve and train cells'
+    width: (a) ``grid_compute_dtype`` bf16 (with ``grid_bwd_dtype`` bf16)
+    and mixed beside the float32 default — two 512² head frames and one
+    head+torso frame through ``RADNeRFInfer``, six 65,536-ray head steps —
+    each setting's head frame and step (and the bf16 head+torso frame) held
+    card vs CPU; (b) ``bound: 2`` (two
+    cascades, the walk) — two frames, six steps, the walk bit for bit card
+    vs CPU; (c) stage A: four SyncNet steps at ``syncnet_norm: bn``, four
+    post-net steps at ``accumulate_grad_batches: 2``, each held card vs
+    CPU, and two gloo ranks of SyncNet, the VAE and audio2pose that stay
+    bit-identical → (record, launches, sites)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from geneface_tpu_torch.inference import RADNeRFInfer
+    from geneface_tpu_torch.kernels import LAUNCHES
+    from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
+    from geneface_tpu_torch.tasks.run import resolve_task
+
+    root = os.path.dirname(cfg["work_dir"])
+    bcfg = write_bound_checkpoint(cfg)
+    cells = [(f"{c}_{b}", dict(grid_compute_dtype=c, grid_bwd_dtype=b)) for c, b in OPTION_MODES]
+    cells.append(("bound2", {}))
+    record, runs, sites = {}, {}, {}
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    want = {"gather_rows": 0, "scatter_add_rows": 0}
+    # (a), (b): the counted frames and steps of every setting
+    for tag, over in cells:
+        base = bcfg if tag == "bound2" else cfg
+        head = RADNeRFInfer(dict(base, **over))
+        torso = None if tag == "bound2" else RADNeRFInfer(dict(torso_cfg(cfg), **over))
+        task = RADNeRFTask(dict(train_cfg(base), **over))
+        task.build()
+        meta = task.model.pos_fused_meta
+        if (meta.compute, meta.bwd_compute) != (over.get("grid_compute_dtype", "f32"),
+                                                over.get("grid_bwd_dtype", "same")):
+            raise AssertionError(f"{path}.{tag}: the model's grids run {meta.compute}")
+        r = {"frames": option_frames(head, OPTION_FRAMES)}
+        if torso is not None:
+            r["torso_frame"] = option_frames(torso, 1)
+        r["steps"] = option_steps(task, OPTION_STEPS)
+        runs[tag] = (head, torso, task)
+        record[tag] = r
+        # per frame (render_frames and three steady frames): one row gather
+        # per grid group (K8), the composite sums and the frame scatter (K1);
+        # per step as the train phase's, the sweep at the first step over
+        # every cascade in 16 chunks
+        n_head = n_grid_groups(task.model)[0]
+        C = task.occ.occ_grid.shape[0]
+        for infer, n in ((head, OPTION_FRAMES + 3), (torso, 4)):
+            if infer is not None:
+                want["gather_rows"] += n * sum(n_grid_groups(infer.model))
+                want["scatter_add_rows"] += n * (1 + int(bool(infer.ray_capacity)))
+        want["gather_rows"] += OPTION_STEPS * (n_head + 1) + C * 16 * n_head
+        want["scatter_add_rows"] += OPTION_STEPS * (1 + n_head)
+    launches = dict(LAUNCHES)
+    if launches != want:
+        raise AssertionError(f"{path} launches {launches}, expected {want}")
+    f32 = record["f32_same"]
+    for tag, r in record.items():
+        print(f"{path}.{tag}: ms/frame {r['frames']['ms_per_frame']:.3f} (steady "
+              f"{r['frames']['steady_ms']:.3f}; f32 {f32['frames']['steady_ms']:.3f})"
+              + (f", head+torso steady {r['torso_frame']['steady_ms']:.3f} (f32 "
+                 f"{f32['torso_frame']['steady_ms']:.3f})" if "torso_frame" in r else "")
+              + f"; median ms/step {r['steps']['median_step_ms']:.3f} (f32 "
+              f"{f32['steps']['median_step_ms']:.3f}), steps "
+              + json.dumps([round(x, 3) for x in r["steps"]["step_ms"]]))
+    # the checks: card vs CPU, the sites, the bound-2 walk and its span
+    for tag, (head, torso, task) in runs.items():
+        if tag == "f32_same":
+            continue
+        r = record[tag]
+        base = bcfg if tag == "bound2" else cfg
+        over = dict(cells)[tag]
+        r["frame_vs_cpu"] = frame_vs_cpu(head, dict(base, **over), f"{path}.{tag}")
+        if tag == "bf16_bf16":  # the torso grid at bf16 (mixed: its head frame)
+            r["torso_frame_vs_cpu"] = frame_vs_cpu(
+                torso, dict(torso_cfg(cfg), **over), f"{path}.{tag}.torso")
+        r["grad_check"] = check_grads_vs_cpu(task, next(task.train_batches()), f"{path}.{tag}")
+        print(f"{path}.{tag}: frame card vs CPU " + json.dumps(r["frame_vs_cpu"])
+              + (", head+torso " + json.dumps(r["torso_frame_vs_cpu"])
+                 if "torso_frame_vs_cpu" in r else ""))
+        grids = grid_names(task.model)
+        if tag != "bound2":  # the bound-2 frame's grids are the serve phase's
+            sites.update(name_sites(capture_calls(lambda: head.render_frame(0)),
+                                    grid_names(head.model), f"{path}.{tag}.frame"))
+        if tag == "bf16_bf16":
+            sites.update(name_sites(capture_calls(lambda: torso.render_frame(0)),
+                                    grid_names(torso.model), f"{path}.{tag}.torso_frame"))
+        batch = next(task.train_batches())
+        sites.update(name_sites(capture_calls(lambda: task.train_step(batch)), grids,
+                                f"{path}.{tag}.step"))
+    head = runs["bound2"][0]
+    record["bound2"]["walk_vs_cpu"] = walk_vs_cpu(head, f"{path}.bound2")
+    prof = profile_frame(head, out_dir, record["bound2"]["frames"]["steady_ms"],
+                         f"{path}_bound2")
+    record["bound2"]["frame_profile"] = prof
+    print(f"{path}.bound2: the walk card vs CPU bit for bit: "
+          + json.dumps(record["bound2"]["walk_vs_cpu"]) + "; frame stages ms "
+          + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()})
+          + f", device busy {fmt_ms(prof['device_busy_ms'], ' ms')}, idle share "
+          f"{fmt_ms(prof['idle_share'])}")
+    del runs
+
+    # (c) stage A's options on the audio_train store
+    store = os.path.join(root, "lrs3")
+    if not os.path.exists(os.path.join(store, "train.data")):  # audio_train wrote it
+        store = write_lrs3_store(store, LRS3_TRAIN_CLIPS, LRS3_VAL_CLIPS)
+    work = os.path.join(root, "options_audio")
+    frozen = dict(syncnet_work_dir="", audio2motion_work_dir="")
+    audio = {"syncnet": audio_task_cfg("syncnet", store, work, syncnet_norm="bn"),
+             "postnet": audio_task_cfg("postnet", store, work, accumulate_grad_batches=2,
+                                       **frozen)}
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+    tasks, audio_want = {}, {"gather_rows": 0, "scatter_add_rows": 0}
+    for name, tcfg in audio.items():
+        task = resolve_task(tcfg["task_cls"])(tcfg)
+        task.build()
+        opts = ([task.optimizer] if name == "syncnet" else [task.gen_opt, task.disc_opt])
+        nets = [task.model] + ([task.disc] if name == "postnet" else [])
+        before = [{n: p.detach().clone() for n, p in m.named_parameters()} for m in nets]
+        it = task.train_batches(0)
+        moved, ms = [], []
+        for _ in range(OPTION_AUDIO_STEPS):
+            b = next(it)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            task.train_step(b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - ts) * 1e3)
+            now = [{n: p.detach().clone() for n, p in m.named_parameters()} for m in nets]
+            moved.append([sum(not torch.equal(a[n], c[n]) for n in a)
+                          for a, c in zip(before, now)])
+            before = now
+        audio_want["gather_rows"] += 2 * OPTION_AUDIO_STEPS
+        audio_want["scatter_add_rows"] += 0 if name == "syncnet" else OPTION_AUDIO_STEPS
+        tasks[name] = task
+        record[name] = {"step_ms": ms, "moved_per_step": moved,
+                        "counts": [int(o.count) for o in opts]}
+        if name == "syncnet":
+            stats = [n for n, _ in task.model.named_parameters() if "running_" in n]
+            if len(stats) != 52 or not all(m[0] >= len(stats) for m in moved):
+                raise AssertionError(f"{path}.syncnet: the bn statistics ({len(stats)}) did "
+                                     f"not train: moved per step {moved}")
+        elif [m[0] > 0 for m in moved] != [False, True] * (OPTION_AUDIO_STEPS // 2) or \
+                record[name]["counts"] != [OPTION_AUDIO_STEPS // 2] * 2:
+            raise AssertionError(f"{path}.postnet: accumulate_grad_batches 2 moved "
+                                 f"{moved}, counts {record[name]['counts']}")
+    audio_launches = dict(LAUNCHES)
+    if audio_launches != audio_want:
+        raise AssertionError(f"{path} stage A launches {audio_launches}, expected {audio_want}")
+    for name, task in tasks.items():
+        it = task.train_batches(0)
+        lrs3, person = next(it), next(it)
+        record[name]["card_vs_cpu"] = audio_step_vs_cpu(name, task, lrs3, person, path)
+        batch = next(it)
+        sites.update(name_sites(capture_calls(lambda: task.train_step(batch)), {},
+                                f"{path}.{name}"))
+        print(f"{path}.{name}: steps ms " + json.dumps([round(x, 3) for x in
+                                                         record[name]["step_ms"]])
+              + f", parameters moved per step {record[name]['moved_per_step']}, optimizer "
+              f"counts {record[name]['counts']}")
+    del tasks
+
+    # the stage-A mesh: two gloo ranks on cuda:0, the same batches
+    from geneface_tpu_torch.config.config import load_config
+
+    pose_store = write_pose_store(os.path.join(root, "options_pose"))
+    pcfg = dict(load_config(os.path.join(REPO, POSE_YAML)), data_dir=pose_store,
+                work_dir=os.path.join(work, "pose"), audio_in_dim=58)
+    spec = {}
+    for name, tcfg in (("syncnet", audio["syncnet"]),
+                       ("vae", audio_task_cfg("vae", store, work, syncnet_work_dir="")),
+                       ("audio2pose", pcfg)):
+        t = resolve_task(tcfg["task_cls"])(tcfg, device="cpu")
+        t.build()
+        it = t.train_batches(0)
+        spec[name] = (dict(tcfg), [next(it) for _ in range(OPTION_RANK_STEPS)])
+    spec_path = os.path.join(root, "options_ranks.pt")
+    torch.save(spec, spec_path)
+    t0 = time.time()
+    mp.spawn(options_rank, args=(DDP_WORLD, free_port(), spec_path, root), nprocs=DDP_WORLD,
+             join=True)
+    ranks = [torch.load(os.path.join(root, f"options_rank{r}.pt"), weights_only=False)
+             for r in range(DDP_WORLD)]
+    differ = {name: [n for n, p in ranks[0]["params"][name].items()
+                     if not torch.equal(p, ranks[1]["params"][name][n])] for name in spec}
+    if any(differ.values()) or ranks[0]["launches"] != ranks[1]["launches"] or \
+            not ranks[0]["launches"]["gather_rows"]:
+        raise AssertionError(f"{path}: the stage-A ranks differ {differ} / launches "
+                             f"{[r['launches'] for r in ranks]}")
+    record["mesh"] = {"spawn_s": time.time() - t0, "launches_by_rank": [r["launches"]
+                                                                          for r in ranks],
+                      "losses": ranks[0]["losses"]}
+    print(f"{path}: two gloo ranks on cuda:0, {OPTION_RANK_STEPS} steps each of "
+          f"{sorted(spec)}: parameters bit-identical across the ranks; spawn to end "
+          f"{record['mesh']['spawn_s']:.1f} s; launches per rank {ranks[0]['launches']}")
+    for k in launches:
+        launches[k] += audio_launches[k] + sum(r["launches"][k] for r in ranks)
+    return record, launches, sites
+
+
 def main() -> int:
     import torch
 
@@ -4781,7 +5178,8 @@ def main() -> int:
                   ("asr", asr_phase, cfg),
                   ("pose", pose_phase, cfg),
                   ("gui", gui_phase, cfg),
-                  ("a2m_models", a2m_models_phase, cfg)]
+                  ("a2m_models", a2m_models_phase, cfg),
+                  ("options", options_phase, cfg)]
         record, launches, all_sites, per_call, took = {"gpu": smi}, {}, {}, {}, {}
         for path, phase, phase_cfg in phases:
             t1 = time.time()

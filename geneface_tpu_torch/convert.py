@@ -325,27 +325,37 @@ def _leaf_maps(m: nn.Module) -> list:
     return out
 
 
+#: (torch attribute, flax ``batch_stats`` leaf) of a BatchNorm's statistics
+_STATS = (("running_mean", "mean"), ("running_var", "var"))
+
+
 def flax_param_tree(model: nn.Module, values: dict) -> dict:
     """Tensors shaped as ``model``'s parameters, ``{parameter name:
     tensor}`` (optimizer moments), → ``{"params": tree}`` of numpy leaves in
-    the layout :func:`flax_variables` gives the parameters themselves."""
+    the layout :func:`flax_variables` gives the parameters themselves; the
+    values of BatchNorm statistics (trained ones, see
+    ``models.layers.train_running_stats_``) go to ``"batch_stats"``."""
     tree: dict = {}
+    stats: dict = {}
     for path, m in _module_leaves(model):
-        for attr, leaf, to_flax, _ in _leaf_maps(m):
+        maps = [(attr, leaf, to_flax, tree) for attr, leaf, to_flax, _ in _leaf_maps(m)]
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            maps += [(attr, leaf, lambda t: t, stats) for attr, leaf in _STATS]
+        for attr, leaf, to_flax, node in maps:
             t = values.get(_join(path, attr))
             if t is None:
                 continue
-            node = tree
             for p in path:
                 node = node.setdefault(p, {})
             node[leaf] = np.array(to_flax(t.detach()).cpu().numpy(), order="C")
-    return {"params": tree}
+    return {"params": tree, "batch_stats": stats} if stats else {"params": tree}
 
 
 def param_values_from_flax(model: nn.Module, tree: dict) -> dict:
     """Inverse of :func:`flax_param_tree` → ``{parameter name: numpy array}``
     of every leaf the tree holds."""
     params = tree.get("params", tree)
+    stats = tree.get("batch_stats", {})
     out = {}
     for path, m in _module_leaves(model):
         try:
@@ -355,6 +365,14 @@ def param_values_from_flax(model: nn.Module, tree: dict) -> dict:
         for attr, leaf, _, from_flax in _leaf_maps(m):
             if leaf in node and not isinstance(node[leaf], dict):
                 out[_join(path, attr)] = from_flax(torch.as_tensor(np.asarray(node[leaf]))).numpy()
+        if isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            try:
+                snode = _subtree(stats, path)
+            except KeyError:
+                continue
+            for attr, leaf in _STATS:
+                if leaf in snode:
+                    out[_join(path, attr)] = np.asarray(snode[leaf])
     return {k: np.array(v, order="C") for k, v in out.items()}
 
 

@@ -38,7 +38,7 @@ import torch
 from geneface_tpu_torch.data.radnerf_dataset import get_cond_window
 from geneface_tpu_torch.utils.camera import get_rays
 
-__all__ = ["OrbitCamera", "RealtimeRenderer", "NeRFGUI", "NeRFWebGUI", "main"]
+__all__ = ["OrbitCamera", "RealtimeRenderer", "NeRFGUI", "NeRFWebGUI", "decode_jpeg", "main"]
 
 
 def _rotvec_to_matrix(rotvec: np.ndarray) -> np.ndarray:
@@ -376,6 +376,16 @@ window.onwheel = e => fetch(`/zoom?d=${e.deltaY>0?-1:1}`);
 window.onkeydown = e => { if (e.key===' ') playing = !playing; };
 loadState(); tick();
 </script></body></html>"""
+
+
+def decode_jpeg(body: bytes) -> np.ndarray | None:
+    """A ``/frame`` body → the RGB frame ``[h, w, 3]`` uint8 (``None`` if
+    it does not decode): the inverse of the viewer's encoding, for Python
+    clients of the server."""
+    import cv2
+
+    img = cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)
+    return None if img is None else cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
 
 
 class NeRFWebGUI:

@@ -23,6 +23,7 @@ __all__ = [
     "FrozenBatchNorm2d",
     "same_padding",
     "channel_norm",
+    "train_running_stats_",
     "init_weights_",
 ]
 
@@ -63,11 +64,30 @@ class ChannelLayerNorm(nn.LayerNorm):
 
 class FrozenBatchNorm1d(nn.BatchNorm1d):
     """Eval-mode BatchNorm on ``[B, C, T]`` whatever the module's mode: flax
-    ``BatchNorm(use_running_average=True, epsilon=1e-5)``."""
+    ``BatchNorm(use_running_average=True, epsilon=1e-5)``. After
+    :func:`train_running_stats_` the running statistics are parameters and
+    the forward is flax's arithmetic, differentiable in them."""
 
     def forward(self, x):
+        if isinstance(self.running_var, nn.Parameter):
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return (x - self.running_mean[:, None]) * mul[:, None] + self.bias[:, None]
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, training=False, eps=self.eps)
+
+
+def train_running_stats_(model: nn.Module) -> nn.Module:
+    """Make the running mean and variance of every
+    :class:`FrozenBatchNorm1d` of ``model`` trainable parameters (same
+    names, same values): the JAX SyncNet task hands its whole variables
+    tree, ``batch_stats`` included, to Adam, so the frozen statistics of
+    ``syncnet_norm: bn`` get gradients and move."""
+    for m in model.modules():
+        if isinstance(m, FrozenBatchNorm1d):
+            for name in ("running_mean", "running_var"):
+                t = m._buffers.pop(name)
+                m.register_parameter(name, nn.Parameter(t.detach().clone()))
+    return model
 
 
 class FrozenBatchNorm2d(nn.BatchNorm2d):

@@ -74,6 +74,7 @@ _CFG_KEYS = {
     "ambient_ungroup_coarse": -1,
     "fused_coarse_run": 1,
     "ambient_single_table": False,
+    "grid_bwd_dtype": "same",
 }
 
 

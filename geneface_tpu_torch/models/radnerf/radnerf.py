@@ -11,7 +11,10 @@ parameter tree through :mod:`geneface_tpu_torch.convert`.
 ``ParameterDict`` of groups), or ``reference`` / ``block``, which share the
 canonical ``[n_entries, C]`` table of the reference ``gridencoder`` (so a
 checkpoint runs unchanged under either; an imported GeneFace checkpoint
-needs one of them).
+needs one of them). ``grid_compute_dtype`` (``f32``, ``bf16``, ``mixed``)
+and ``grid_bwd_dtype`` (``same``, ``bf16``) set the fused grids' compute
+dtypes (:mod:`geneface_tpu_torch.ops.fused_grid`); the other layouts
+ignore them, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -83,14 +86,12 @@ class RADNeRF(nn.Module):
         ambient_single_table: bool = False,
         grid_backend: str = "fused",
         grid_compute_dtype: str = "f32",
+        grid_bwd_dtype: str = "same",
     ):
         super().__init__()
         if grid_backend not in GRID_BACKENDS:
             raise ValueError(f"grid_backend={grid_backend!r}: one of {GRID_BACKENDS}")
-        if grid_compute_dtype != "f32":
-            raise NotImplementedError(
-                f"grid_compute_dtype={grid_compute_dtype!r}: the port computes grids in f32"
-            )
+        self.grid_compute_dtype = grid_compute_dtype
         self.bound = bound
         self.with_att = with_att
         self.sh_degree = sh_degree
@@ -121,11 +122,13 @@ class RADNeRF(nn.Module):
         self.pos_fused_meta = make_fused_grid_meta(
             pos_meta, single_table=fused_single_table, row_lanes=fused_row_lanes,
             ungroup_coarse=fused_ungroup_coarse, coarse_run=fused_coarse_run,
+            compute=grid_compute_dtype, bwd_compute=grid_bwd_dtype,
         )
         self.ambient_fused_meta = make_fused_grid_meta(
             amb_meta, single_table=fused_single_table or ambient_single_table,
             row_lanes=fused_row_lanes, ungroup_coarse=amb_ungroup,
-            coarse_run=fused_coarse_run,
+            coarse_run=fused_coarse_run, compute=grid_compute_dtype,
+            bwd_compute=grid_bwd_dtype,
         )
         self.pos_embeddings = self._grid_params(pos_meta, self.pos_fused_meta)
         self.ambient_embeddings = self._grid_params(amb_meta, self.ambient_fused_meta)

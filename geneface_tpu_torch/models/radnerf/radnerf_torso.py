@@ -11,7 +11,8 @@ The torso grid's geometry follows the head's levels: ``grid_num_levels`` ×
 ``grid_level_dim`` of the config, hashmap cap ``16 − round(log2(C/2))``,
 finest resolution 2048, tiled, linear, in the head's ``grid_backend`` (with
 the fused layout's default grouping: its ``ungroup_coarse`` is not the
-head's). The torso MLPs compute in float32 even when the head's
+head's; it takes the head's ``grid_compute_dtype`` but not its
+``grid_bwd_dtype``, as in the JAX package). The torso MLPs compute in float32 even when the head's
 compute in bf16, as the JAX ``MLP``'s default dtype does.
 """
 
@@ -68,7 +69,8 @@ class RADNeRFTorso(RADNeRF):
         # the torso grid reads the screen coordinates of the batch's pixels,
         # which fall evenly over its tables
         self.torso_fused_meta = make_fused_grid_meta(
-            torso_meta, row_lanes=head_kwargs.get("fused_row_lanes", 256), spread=True
+            torso_meta, row_lanes=head_kwargs.get("fused_row_lanes", 256), spread=True,
+            compute=self.grid_compute_dtype,
         )
         self.torso_embeddings = self._grid_params(torso_meta, self.torso_fused_meta)
         if torso_individual_embedding_dim > 0:

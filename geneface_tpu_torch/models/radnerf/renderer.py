@@ -27,6 +27,7 @@ from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import logging
 import math
 
 import numpy as np
@@ -231,21 +232,26 @@ def kdop_hit(rays_o, rays_d, kdop, min_near: float) -> torch.Tensor:
     return (near.clamp(min=min_near) <= far) & (far >= min_near)
 
 
+#: (cascade, grid_size, max_steps) whose fall-back to the walk was logged
+_WARNED: set = set()
+
+
 class OccupancyView(NamedTuple):
     """Per-video constants derived from the occupancy grid: the packed 8³
     blocks the lattice march tests, the tight occupied box it fast-forwards
-    to, and the grid itself, which the walk reads."""
+    to (both ``None`` for more than one cascade, which only the walk
+    marches), and the grid itself, which the walk reads."""
 
-    blocks: torch.Tensor  # [(H/8)^3, 16] int32
-    tight: torch.Tensor  # [6]
-    grid: torch.Tensor  # [1, H, H, H] bool
+    blocks: torch.Tensor | None  # [(H/8)^3, 16] int32
+    tight: torch.Tensor | None  # [6]
+    grid: torch.Tensor  # [cascade, H, H, H] bool
 
 
 def occupancy_view(occ_grid: torch.Tensor, bound: float) -> OccupancyView:
-    """Pack ``occ_grid [1, H, H, H]`` for :func:`render_rays_radnerf`. The
-    lattice march needs a single cascade."""
+    """Pack ``occ_grid [cascade, H, H, H]`` for :func:`render_rays_radnerf`:
+    the lattice march's blocks and box of a single cascade."""
     if occ_grid.shape[0] != 1:
-        raise NotImplementedError("the port marches a single cascade (bound <= 1)")
+        return OccupancyView(None, None, occ_grid)
     return OccupancyView(
         pack_occ_blocks(occ_grid[0]), occupied_cell_aabb(occ_grid[0], bound), occ_grid
     )
@@ -274,8 +280,9 @@ def render_rays_radnerf(
     """March + field eval + composite + background.
 
     With ``mean_samples_per_ray``: the compact field eval, after the
-    lattice march where ``lattice_K`` is set and ``grid_size >= max_steps``
-    (the uniform-dt regime), else after the walk. Without it: the walk and
+    lattice march where ``lattice_K`` is set, the grid has one cascade and
+    ``grid_size >= max_steps`` (the uniform-dt regime), else after the walk
+    (logged once, as the JAX renderer warns). Without it: the walk and
     the field on the whole ``[N, max_steps]`` slab. ``dt_gamma`` sets the
     walk's step beyond the uniform-dt regime; after the walk
     ``march_span`` is ``None``.
@@ -346,9 +353,17 @@ def render_rays_radnerf(
         nears, fars = near_far_from_aabb(rays_o, rays_d, make_aabb(bound, dev), min_near)
         if noises is None:
             noises = torch.zeros(N, device=dev)
-        # the lattice march needs the uniform-dt regime (grid_size >=
-        # max_steps); without it, or without lattice_K, the walk
-        if lattice_K and grid_size >= max_steps:
+        # the lattice march needs the uniform-dt regime (one cascade and
+        # grid_size >= max_steps); without it, or without lattice_K, the walk
+        uniform = occ.grid.shape[0] == 1 and grid_size >= max_steps
+        if lattice_K and not uniform and (occ.grid.shape[0], grid_size, max_steps) not in _WARNED:
+            _WARNED.add((occ.grid.shape[0], grid_size, max_steps))
+            logging.getLogger("geneface_tpu_torch").warning(
+                "lattice_K=%s requested but falling back to the walk (cascade=%d, "
+                "grid_size=%d, max_steps=%d)", lattice_K, occ.grid.shape[0], grid_size,
+                max_steps,
+            )
+        if lattice_K and uniform:
             march = march_rays_lattice(
                 rays_o, rays_d, occ.blocks, occ.tight, nears, fars, noises,
                 bound=bound, max_steps=max_steps, grid_size=grid_size, lattice_K=lattice_K,

@@ -77,14 +77,17 @@ def freq_encode_output_dim(input_dim: int, degree: int) -> int:
 
 
 def sh_encode(d: torch.Tensor, degree: int = 4) -> torch.Tensor:
-    """Real spherical harmonics of ``degree`` ∈ [1, 4] on unit directions
-    ``d [..., 3]`` (instant-ngp sign convention) → ``[..., degree²]``.
-    The model uses degree 4; higher degrees are not ported."""
-    if not 1 <= degree <= 4:
-        raise ValueError(f"sh degree must be in [1, 4], got {degree}")
+    """Real spherical harmonics of ``degree`` ∈ [1, 8] on unit directions
+    ``d [..., 3]`` (instant-ngp sign convention, the coefficients of
+    ``shencoder.cu``) → ``[..., degree²]``. The model uses degree 4."""
+    if not 1 <= degree <= 8:
+        raise ValueError(f"sh degree must be in [1, 8], got {degree}")
     x, y, z = d[..., 0], d[..., 1], d[..., 2]
     xy, xz, yz = x * y, x * z, y * z
     x2, y2, z2 = x * x, y * y, z * z
+    if degree >= 5:
+        x4, y4, z4 = x2 * x2, y2 * y2, z2 * z2
+        x6, y6, z6 = x4 * x2, y4 * y2, z4 * z2
     out = [torch.full_like(x, 0.28209479177387814)]
     if degree >= 2:
         out += [
@@ -109,6 +112,75 @@ def sh_encode(d: torch.Tensor, degree: int = 4) -> torch.Tensor:
             0.45704579946446572 * x * (1.0 - 5.0 * z2),
             1.4453057213202769 * z * (x2 - y2),
             0.59004358992664352 * x * (-x2 + 3.0 * y2),
+        ]
+    if degree >= 5:
+        out += [
+            2.5033429417967046 * xy * (x2 - y2),
+            1.7701307697799304 * yz * (-3.0 * x2 + y2),
+            0.94617469575756008 * xy * (7.0 * z2 - 1.0),
+            0.66904654355728921 * yz * (3.0 - 7.0 * z2),
+            -3.1735664074561294 * z2 + 3.7024941420321507 * z4 + 0.31735664074561293,
+            0.66904654355728921 * xz * (3.0 - 7.0 * z2),
+            0.47308734787878004 * (x2 - y2) * (7.0 * z2 - 1.0),
+            1.7701307697799304 * xz * (-x2 + 3.0 * y2),
+            -3.7550144126950569 * x2 * y2 + 0.62583573544917614 * x4
+            + 0.62583573544917614 * y4,
+        ]
+    if degree >= 6:
+        out += [
+            0.65638205684017015 * y * (10.0 * x2 * y2 - 5.0 * x4 - y4),
+            8.3026492595241645 * xy * z * (x2 - y2),
+            -0.48923829943525038 * y * (3.0 * x2 - y2) * (9.0 * z2 - 1.0),
+            4.7935367849733241 * xy * z * (3.0 * z2 - 1.0),
+            0.45294665119569694 * y * (14.0 * z2 - 21.0 * z4 - 1.0),
+            0.1169503224534236 * z * (-70.0 * z2 + 63.0 * z4 + 15.0),
+            0.45294665119569694 * x * (14.0 * z2 - 21.0 * z4 - 1.0),
+            2.3967683924866621 * z * (x2 - y2) * (3.0 * z2 - 1.0),
+            -0.48923829943525038 * x * (x2 - 3.0 * y2) * (9.0 * z2 - 1.0),
+            2.0756623148810411 * z * (-6.0 * x2 * y2 + x4 + y4),
+            0.65638205684017015 * x * (10.0 * x2 * y2 - x4 - 5.0 * y4),
+        ]
+    if degree >= 7:
+        out += [
+            1.3663682103838286 * xy * (-10.0 * x2 * y2 + 3.0 * x4 + 3.0 * y4),
+            2.3666191622317521 * yz * (10.0 * x2 * y2 - 5.0 * x4 - y4),
+            2.0182596029148963 * xy * (x2 - y2) * (11.0 * z2 - 1.0),
+            -0.92120525951492349 * yz * (3.0 * x2 - y2) * (11.0 * z2 - 3.0),
+            0.92120525951492349 * xy * (-18.0 * z2 + 33.0 * z4 + 1.0),
+            0.58262136251873131 * yz * (30.0 * z2 - 33.0 * z4 - 5.0),
+            6.6747662381009842 * z2 - 20.024298714302954 * z4
+            + 14.684485723822165 * z6 - 0.31784601133814211,
+            0.58262136251873131 * xz * (30.0 * z2 - 33.0 * z4 - 5.0),
+            0.46060262975746175 * (x2 - y2)
+            * (11.0 * z2 * (3.0 * z2 - 1.0) - 7.0 * z2 + 1.0),
+            -0.92120525951492349 * xz * (x2 - 3.0 * y2) * (11.0 * z2 - 3.0),
+            0.50456490072872406 * (11.0 * z2 - 1.0) * (-6.0 * x2 * y2 + x4 + y4),
+            2.3666191622317521 * xz * (10.0 * x2 * y2 - x4 - 5.0 * y4),
+            10.247761577878714 * x2 * y4 - 10.247761577878714 * x4 * y2
+            + 0.6831841051919143 * x6 - 0.6831841051919143 * y6,
+        ]
+    if degree >= 8:
+        out += [
+            0.70716273252459627 * y * (-21.0 * x2 * y4 + 35.0 * x4 * y2 - 7.0 * x6 + y6),
+            5.2919213236038001 * xy * z * (-10.0 * x2 * y2 + 3.0 * x4 + 3.0 * y4),
+            -0.51891557872026028 * y * (13.0 * z2 - 1.0)
+            * (-10.0 * x2 * y2 + 5.0 * x4 + y4),
+            4.1513246297620823 * xy * z * (x2 - y2) * (13.0 * z2 - 3.0),
+            -0.15645893386229404 * y * (3.0 * x2 - y2)
+            * (13.0 * z2 * (11.0 * z2 - 3.0) - 27.0 * z2 + 3.0),
+            0.44253269244498261 * xy * z * (-110.0 * z2 + 143.0 * z4 + 15.0),
+            0.090331607582517306 * y * (-135.0 * z2 + 495.0 * z4 - 429.0 * z6 + 5.0),
+            0.068284276912004949 * z * (315.0 * z2 - 693.0 * z4 + 429.0 * z6 - 35.0),
+            0.090331607582517306 * x * (-135.0 * z2 + 495.0 * z4 - 429.0 * z6 + 5.0),
+            0.07375544874083044 * z * (x2 - y2)
+            * (143.0 * z2 * (3.0 * z2 - 1.0) - 187.0 * z2 + 45.0),
+            -0.15645893386229404 * x * (x2 - 3.0 * y2)
+            * (13.0 * z2 * (11.0 * z2 - 3.0) - 27.0 * z2 + 3.0),
+            1.0378311574405206 * z * (13.0 * z2 - 3.0) * (-6.0 * x2 * y2 + x4 + y4),
+            -0.51891557872026028 * x * (13.0 * z2 - 1.0)
+            * (-10.0 * x2 * y2 + x4 + 5.0 * y4),
+            2.6459606618019 * z * (15.0 * x2 * y4 - 15.0 * x4 * y2 + x6 - y6),
+            0.70716273252459627 * x * (-35.0 * x2 * y4 + 21.0 * x4 * y2 - x6 + 7.0 * y6),
         ]
     return torch.stack(out, dim=-1)
 

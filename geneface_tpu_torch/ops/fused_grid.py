@@ -17,6 +17,16 @@ canonical table. The forward saves the row indices and, for the input
 gradients, the gathered rows; the corner weights are recomputed from the
 inputs (``[M, G*K]``, an eighth of the channel-expanded ``[M, G*K*C]``
 residual the JAX package saves).
+
+``compute`` ``bf16`` (every group) or ``mixed`` (hash groups only) computes
+a group's wide tensors at the JAX package's rounding points: K8 gathers the
+rows from a bfloat16 copy of the table, the corner weights are rounded to
+bfloat16, each ``weight · row`` product is rounded to bfloat16, and the
+corner sum accumulates in float32. ``bwd_compute`` ``bf16`` (or a bfloat16
+group) rounds the backward's cotangent, its products and the saved rows
+(and, for ``bwd_compute`` only, the per-axis weights) to bfloat16, and K1
+adds bfloat16 updates into float32 sums. Parameters and their gradients
+stay float32 in every mode.
 """
 
 from __future__ import annotations
@@ -42,6 +52,11 @@ class FusedGridMeta(NamedTuple):
     dense_sides: tuple  # per group: entries per axis of the dense level (0 if hash)
     dense_bsides: tuple  # per group: blocks per axis (0 if hash)
     spread: bool = False  # the inputs fall evenly over the tables: K1 skips ``smem``
+    #: "f32" | "bf16" | "mixed": dtype of the forward's rows and products
+    #: ("mixed": bfloat16 for hash groups, float32 for dense ones)
+    compute: str = "f32"
+    #: "same" | "bf16": dtype of the backward's residuals and cotangent
+    bwd_compute: str = "same"
 
     @property
     def input_dim(self):
@@ -58,6 +73,14 @@ class FusedGridMeta(NamedTuple):
     def group_width(self, g: int) -> int:
         return len(self.groups[g]) * (1 << self.input_dim) * self.level_dim
 
+    def group_bf16(self, g: int) -> bool:
+        """Whether group ``g``'s forward computes in bfloat16."""
+        return self.compute == "bf16" or (self.compute == "mixed" and self.modes[g] == "hash")
+
+    def group_bwd_bf16(self, g: int) -> bool:
+        """Whether group ``g``'s backward computes in bfloat16."""
+        return self.bwd_compute == "bf16" or self.group_bf16(g)
+
 
 def make_fused_grid_meta(
     meta: GridMeta,
@@ -66,12 +89,19 @@ def make_fused_grid_meta(
     ungroup_coarse: int = 0,
     coarse_run: int = 1,
     spread: bool = False,
+    compute: str = "f32",
+    bwd_compute: str = "same",
 ) -> FusedGridMeta:
     """Default grouping: level 0 alone, then ``ungroup_coarse`` levels in
     runs of ``coarse_run``, then the rest in runs of ``row_lanes // (K*C)``
     levels. The grouping fixes the checkpoint's table shapes. ``spread``:
     the grid's inputs fall evenly over its tables, which the backward's row
-    scatter-adds pass to K1's dispatcher."""
+    scatter-adds pass to K1's dispatcher. ``compute`` and ``bwd_compute``:
+    see the module docstring."""
+    if compute not in ("f32", "bf16", "mixed"):
+        raise ValueError(f"compute must be 'f32', 'bf16' or 'mixed', got {compute!r}")
+    if bwd_compute not in ("same", "bf16"):
+        raise ValueError(f"bwd_compute must be 'same' or 'bf16', got {bwd_compute!r}")
     D = meta.input_dim
     K = 1 << D
     C = meta.level_dim
@@ -112,6 +142,8 @@ def make_fused_grid_meta(
         dense_sides=tuple(sides),
         dense_bsides=tuple(bsides),
         spread=bool(spread),
+        compute=compute,
+        bwd_compute=bwd_compute,
     )
 
 
@@ -199,11 +231,18 @@ def _axis_weights(comps, meta: GridMeta, levels, K: int):
     return w_ax, chain
 
 
-def _prod(ts):
+def _prod(ts, bf16: bool = False):
+    """Product of ``ts`` left to right, each step rounded to bfloat16 when
+    ``bf16`` (the bfloat16 multiplies of the JAX package)."""
     out = ts[0]
     for t in ts[1:]:
-        out = out * t
+        out = _round(out * t, bf16)
     return out
+
+
+def _round(t: torch.Tensor, bf16: bool) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (kept float32) when ``bf16``."""
+    return t.to(torch.bfloat16).float() if bf16 else t
 
 
 class _FusedGridEncode(torch.autograd.Function):
@@ -229,13 +268,16 @@ class _FusedGridEncode(torch.autograd.Function):
         outs, rows_idx, rows_saved = [], [], []
         for gi, g in enumerate(fmeta.groups):
             G = len(g)
+            bf16 = fmeta.group_bf16(gi)
             row = _group_rows(comps, fmeta, gi)
-            rows = launch_gather_rows(tables[gi].contiguous(), row).reshape(M, G, K, C)
-            w = _prod(_axis_weights(comps, meta, g, K)[0])  # [M, G, K]
-            outs.append((w[..., None] * rows).sum(dim=2).reshape(M, G * C))
+            table = tables[gi].to(torch.bfloat16) if bf16 else tables[gi]
+            rows = launch_gather_rows(table.contiguous(), row).reshape(M, G, K, C)
+            w = _round(_prod(_axis_weights(comps, meta, g, K)[0]), bf16)  # [M, G, K]
+            outs.append(_round(w[..., None] * rows, bf16).sum(dim=2).reshape(M, G * C))
             rows_idx.append(row)
             if input_grad:
-                rows_saved.append(rows)
+                # the backward's residual, half-width where it computes in bf16
+                rows_saved.append(rows.to(torch.bfloat16) if fmeta.group_bwd_bf16(gi) else rows)
         out = torch.where(oob[:, None], 0.0, torch.cat(outs, dim=-1))
         ctx.fmeta = fmeta
         ctx.input_grad = input_grad
@@ -259,16 +301,21 @@ class _FusedGridEncode(torch.autograd.Function):
         grad_tables = [None] * n_groups
         for gi, g in enumerate(fmeta.groups):
             G = len(g)
-            gg = g2[:, g[0] * C : (g[-1] + 1) * C].reshape(M, G, 1, C)
+            bf16 = fmeta.group_bwd_bf16(gi)
+            gg = _round(g2[:, g[0] * C : (g[-1] + 1) * C], bf16).reshape(M, G, 1, C)
             w_ax, chain = _axis_weights(comps, meta, g, K)
             if ctx.needs_input_grad[2 + D + gi]:
-                upd = (_prod(w_ax)[..., None] * gg).reshape(M, G * K * C)
+                upd = _round(_prod(w_ax), bf16)[..., None] * gg
+                # bf16: K1 adds the rounded products as bfloat16 updates
+                upd = (upd.to(torch.bfloat16) if bf16 else upd).reshape(M, G * K * C)
                 grad_tables[gi] = launch_scatter_add_rows(rows_idx[gi], upd, fmeta.n_rows[gi],
                                                           spread=fmeta.spread)
             if not ctx.input_grad:
                 continue
+            if fmeta.bwd_compute == "bf16":
+                w_ax = [_round(w, True) for w in w_ax]  # the half-width residuals
             # d out / d comp_d = Σ_k rows · sign_d(k) · chain_d · Π_{d'≠d} w_d'
-            rg = (rows_saved[gi] * gg).sum(dim=-1)  # [M, G, K]
+            rg = _round(rows_saved[gi].float() * gg, bf16).sum(dim=-1)  # [M, G, K]
             bits = torch.arange(K, device=rg.device)
             for d in range(D):
                 sign = 2.0 * ((bits >> d) & 1).float() - 1.0  # [K]
@@ -276,7 +323,7 @@ class _FusedGridEncode(torch.autograd.Function):
                 others = [w_ax[e] for e in range(D) if e != d]
                 term = rg * sign * cd
                 if others:
-                    term = term * _prod(others)
+                    term = term * _prod(others, fmeta.bwd_compute == "bf16")
                 contrib = term.sum(dim=(1, 2))
                 grad_comps[d] = contrib if grad_comps[d] is None else grad_comps[d] + contrib
         if ctx.input_grad:

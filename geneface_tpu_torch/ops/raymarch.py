@@ -222,10 +222,16 @@ def _skip_bytes(occ0: torch.Tensor) -> torch.Tensor:
     return byte
 
 
+def _exponent(x: torch.Tensor) -> torch.Tensor:
+    """Binary exponent ``e`` of ``x = m·2^e``, ``m`` in [0.5, 1) (``frexp``
+    of ``max(x, 1e-30)``)."""
+    return torch.frexp(x.clamp(min=1e-30)).exponent
+
+
 def march_rays_train(
     rays_o: torch.Tensor,  # [N, 3]
     rays_d: torch.Tensor,  # [N, 3]
-    occ_grid: torch.Tensor,  # [1, H, H, H] bool
+    occ_grid: torch.Tensor,  # [cascade, H, H, H] bool
     nears: torch.Tensor,  # [N]
     fars: torch.Tensor,  # [N]
     noises: torch.Tensor,  # [N] in [0, 1): jitter of the start t
@@ -243,17 +249,19 @@ def march_rays_train(
     iterations (the JAX package's cap).
 
     Two branches, as in the JAX package. In the uniform-dt regime (every
-    face config) one iteration jumps a whole empty region along the ray's
-    lattice, as far as :func:`_skip_bytes` proves empty:
+    face config: one cascade and ``grid_size >= max_steps``) one iteration
+    jumps a whole empty region along the ray's lattice, as far as
+    :func:`_skip_bytes` proves empty:
     ``t += max(1, ceil((target - t)/dt - 1e-5))·dt``. Otherwise each
-    iteration takes one micro-step of the do-while. Positions ``o + t·d``
-    and the lattice steps round once, as the reference compiler's fused
+    iteration takes one micro-step of the do-while. With ``C > 1``
+    cascades (``bound > 1``) the step reaches ``dt_max = 2√3·2^(C-1)/H``
+    and each sample reads the cascade ``max(exponent(max|pos|),
+    exponent(dt·H/2))`` (``frexp`` exponents, clipped to ``[0, C-1]``),
+    whose cells span ``min(2^level, bound)``. Positions ``o + t·d`` and the
+    lattice steps round once, as the reference compiler's fused
     multiply-adds do. The host reads whether any ray is still live every
     ``_CHECK_EVERY`` iterations (iterations past that change nothing).
-    One cascade only (``bound <= 1``): more raise ``NotImplementedError``.
     """
-    if occ_grid.shape[0] != 1:
-        raise NotImplementedError("the walk marches a single cascade (bound <= 1)")
     N = rays_o.shape[0]
     S = max_steps
     H = grid_size
@@ -261,9 +269,10 @@ def march_rays_train(
     o = rays_o.detach().float()
     d = rays_d.detach().float()
     inv_d = 1.0 / d
-    dt_max = 2.0 * _SQRT3 / H
+    C = occ_grid.shape[0]
+    dt_max = 2.0 * _SQRT3 * (1 << (C - 1)) / H
     dt_min = min(dt_max, 2.0 * _SQRT3 / max_steps)
-    uniform = dt_min == dt_max
+    uniform = dt_min == dt_max and C == 1
     mb = min(1.0, bound)
     strides = torch.tensor([H * H, H, 1], device=dev)
 
@@ -285,17 +294,17 @@ def march_rays_train(
              1.0 if not v & 1 else 0.0 for v in range(16)], device=dev,
         )
     else:
-        occ_flat = occ_grid.reshape(-1)
+        grid_flat = occ_grid.reshape(-1)  # [C·H³]: cascade c starts at c·H³
         tt_target = torch.full((N,), -math.inf, device=dev)
     for it in range(2 * H + 2 * S):
         alive = (t < fars) & (n_valid < S)
         if it % _CHECK_EVERY == 0 and not bool(alive.any()):
             break
         pos = fma_f32(t[:, None], d, o).clamp(-bound, bound)  # [N, 3]
-        cell = (0.5 * (pos / mb + 1.0) * H).clamp(0.0, float(H - 1)).to(torch.int64)
-        lin = (cell * strides).sum(dim=-1)
-        cf = cell.float()
         if uniform:
+            cell = (0.5 * (pos / mb + 1.0) * H).clamp(0.0, float(H - 1)).to(torch.int64)
+            lin = (cell * strides).sum(dim=-1)
+            cf = cell.float()
             b = byte[lin]
             occ = (b & 1) > 0
             r = radius[(b >> 1) & 15][:, None]
@@ -305,12 +314,22 @@ def march_rays_train(
             emit = alive & occ
             step = torch.full_like(t, dt)
         else:
-            occ = occ_flat[lin]
+            step = dt_of(t)
+            if C > 1:  # the cascade of each sample's position and step
+                level = torch.maximum(
+                    _exponent(pos.abs().amax(dim=-1)).clamp(0, C - 1),
+                    _exponent(step * H * 0.5).clamp(0, C - 1),
+                ).to(torch.int64)
+                mip_bound = torch.exp2(level.float()).clamp(max=bound)[:, None]
+            else:
+                level, mip_bound = 0, mb
+            cell = (0.5 * (pos * (1.0 / mip_bound) + 1.0) * H).clamp(0.0, float(H - 1))
+            cell = cell.to(torch.int64)
+            occ = grid_flat[level * H**3 + (cell * strides).sum(dim=-1)]
             pending = t < tt_target
-            face = fma_f32(cf + 0.5 + 0.5 * torch.sign(d), 2.0 / H, -1.0) * mb
+            face = fma_f32(cell.float() + 0.5 + 0.5 * torch.sign(d), 2.0 / H, -1.0) * mip_bound
             t_skip = ((face - pos) * inv_d).amin(dim=-1)
             emit = alive & ~pending & occ
-            step = dt_of(t)
             # start a skip at an empty cell; keep the old target otherwise
             tt_target = torch.where(alive & ~pending & ~occ, t + t_skip.clamp(min=0.0), tt_target)
         slot = torch.where(emit, n_valid, S)[:, None, None].expand(N, 1, 3)

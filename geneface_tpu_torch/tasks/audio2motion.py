@@ -135,6 +135,9 @@ class VAESyncAudio2MotionTask(Task):
         self.optimizer.zero_grad(set_to_none=True)
         total, losses = self.loss_fn(dev, clip_idx, self.noise(dev), self.sync_weight())
         total.backward()
+        # every rank runs the whole batch (the JAX task names no
+        # data_batch_keys): the average keeps the ranks identical
+        self.sync_grads(self.model.parameters())
         self.optimizer.step()
         return {k: v.detach() for k, v in losses.items()}
 

@@ -114,6 +114,9 @@ class Audio2PoseTask(Task):
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss_fn(self.to_device(batch))
         loss.backward()
+        # every rank runs the whole batch (the JAX task names no
+        # data_batch_keys): the average keeps the ranks identical
+        self.sync_grads(self.model.parameters())
         self.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 

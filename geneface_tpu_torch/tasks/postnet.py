@@ -114,13 +114,12 @@ class PostnetAdvSyncTask(Task):
             init_weights_(LandmarkHubertSyncNet(lm_dim=60, norm=cfg.get("syncnet_norm", "ln")),
                           torch.Generator().manual_seed(2)),
             cfg.get("syncnet_work_dir", ""), dev)
-        if int(cfg.get("accumulate_grad_batches", 1)) > 1:
-            raise NotImplementedError("accumulate_grad_batches > 1 with RMSprop is not ported")
         schedule = build_schedule(cfg)
         ratio = float(cfg.get("postnet_disc_lr_ratio", 1.0))
-        guard = cfg.get("guard_nan_grads", True)
-        self.gen_opt = RMSprop(self.model, schedule, guard_nan_grads=guard)
-        self.disc_opt = RMSprop(self.disc, lambda s: schedule(s) * ratio, guard_nan_grads=guard)
+        kw = dict(guard_nan_grads=cfg.get("guard_nan_grads", True),
+                  accumulate_grad_batches=int(cfg.get("accumulate_grad_batches", 1)))
+        self.gen_opt = RMSprop(self.model, schedule, **kw)
+        self.disc_opt = RMSprop(self.disc, lambda s: schedule(s) * ratio, **kw)
         self.generator = torch.Generator(device=dev).manual_seed(seed + 1)
         self._step = 0
 

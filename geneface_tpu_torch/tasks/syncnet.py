@@ -7,7 +7,9 @@ the batch 25%, another offset in the clip 37.5%, a shift of ±[2, 5] frames
 37.5%. :func:`gather_clips` gathers the 5-frame mouth and 10-frame HuBERT
 clips on the device through the row gather ``ops/scatter.py::gather_rows``
 (K8 forward, K1 backward) over the batch flattened to rows; the loss is
-BCE on the cosine of the two towers' embeddings.
+BCE on the cosine of the two towers' embeddings. With ``syncnet_norm: bn``
+the BatchNorm's running statistics train with the weights, as in the JAX
+task, whose Adam takes the whole variables tree (an oracle quirk).
 
 Checkpoints hold ``state["params"]`` (flax variables) and ``opt_state``, as
 the JAX task writes them, so either package's VAE and post-net tasks load
@@ -23,7 +25,7 @@ from torch.profiler import record_function
 from geneface_tpu_torch import resolve_device
 from geneface_tpu_torch.convert import flax_variables, load_flax_variables
 from geneface_tpu_torch.data.lrs3_dataset import LRS3SeqDataset
-from geneface_tpu_torch.models.layers import init_weights_
+from geneface_tpu_torch.models.layers import init_weights_, train_running_stats_
 from geneface_tpu_torch.models.syncnet.models import LandmarkHubertSyncNet, sync_loss
 from geneface_tpu_torch.ops.scatter import gather_rows
 from geneface_tpu_torch.training.optim import build_adam
@@ -160,12 +162,14 @@ class SyncNetTask(Task):
 
     def build(self) -> None:
         cfg = self.cfg
-        if cfg.get("syncnet_norm", "ln") != "ln":
-            raise ValueError("SyncNet trains with syncnet_norm 'ln' only: 'bn' is the frozen "
-                             "running statistics of imported checkpoints")
         seed = int(cfg.get("seed", 9999))
-        self.model = LandmarkHubertSyncNet(lm_dim=cfg.get("syncnet_lm_dim", 60), norm="ln")
+        norm = cfg.get("syncnet_norm", "ln")
+        self.model = LandmarkHubertSyncNet(lm_dim=cfg.get("syncnet_lm_dim", 60), norm=norm)
         init_weights_(self.model, torch.Generator().manual_seed(seed))
+        if norm == "bn":
+            # the JAX task's Adam takes the whole variables tree: the frozen
+            # BatchNorm statistics get gradients and move (an oracle quirk)
+            train_running_stats_(self.model)
         self.model.to(self.device)
         data_dir = cfg.get("data_dir") or cfg.get("binary_data_dir", "data/binary/lrs3")
         self.train_ds, self.val_ds = lrs3_datasets(cfg, data_dir, 60000)
@@ -194,6 +198,9 @@ class SyncNetTask(Task):
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = self.loss_fn(clips)
         loss.backward()
+        # every rank runs the whole batch (the JAX task names no
+        # data_batch_keys): the average keeps the ranks identical
+        self.sync_grads(self.model.parameters())
         self.optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 

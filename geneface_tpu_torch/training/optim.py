@@ -98,6 +98,26 @@ def param_groups(model: torch.nn.Module, label_of_path: Callable[[str], str],
     ]
 
 
+def _multi_steps(opt: torch.optim.Optimizer, params: list, grads: list,
+                 accept: torch.Tensor) -> tuple:
+    """``optax.MultiSteps`` inside ``apply_if_finite`` for ``opt`` (its
+    ``accumulate``, its ``mini_step`` and each parameter's ``acc`` slot):
+    the running mean of the accepted micro-batches' gradients, which the
+    inner optimizer applies on the ``accumulate``-th of them → (the means,
+    whether this step applies them). Updates ``acc`` and ``mini_step``."""
+    n = opt.mini_step.float() + 1.0
+    means = []
+    for p, g in zip(params, grads):
+        acc = opt.state[p]["acc"]
+        means.append(acc + (g - acc) / n)
+    apply = accept & (opt.mini_step == opt.accumulate - 1)
+    for p, m in zip(params, means):
+        st = opt.state[p]
+        st["acc"] = torch.where(apply, torch.zeros_like(m), torch.where(accept, m, st["acc"]))
+    opt.mini_step = torch.where(accept, (opt.mini_step + 1) % opt.accumulate, opt.mini_step)
+    return means, apply
+
+
 class MultiGroupAdam(torch.optim.Optimizer):
     """Adam with a shared schedule times a per-group multiplier.
 
@@ -151,21 +171,9 @@ class MultiGroupAdam(torch.optim.Optimizer):
         ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         accept = ok if self.guard_nan_grads else torch.ones_like(ok)
         if self.accumulate > 1:
-            # MultiSteps' running mean over the accepted micro-batches; Adam
-            # moves on the k-th of them
-            n = self.mini_step.float() + 1.0
-            means = []
-            for p, g in zip(params, grads):
-                acc = self._slots(p)["acc"]
-                means.append(acc + (g - acc) / n)
-            apply = accept & (self.mini_step == self.accumulate - 1)
-            for p, m in zip(params, means):
-                st = self.state[p]
-                st["acc"] = torch.where(apply, torch.zeros_like(m),
-                                        torch.where(accept, m, st["acc"]))
-            self.mini_step = torch.where(
-                accept, (self.mini_step + 1) % self.accumulate, self.mini_step)
-            grads = means
+            for p in params:
+                self._slots(p)
+            grads, apply = _multi_steps(self, params, grads, accept)
         else:
             apply = accept
         if self.clip_grad_value > 0:
@@ -279,31 +287,40 @@ class RMSprop(torch.optim.Optimizer):
     parameter of ``model``: ``ν ← 0.1·g² + 0.9·ν`` from ``ν = 0``, then
     ``p ← p - schedule(count)·(g·rsqrt(ν + 1e-8))``. ``guard_nan_grads``
     skips a step whose gradients are not all finite on the device (the
-    parameters, ``ν`` and the count stay, ``skipped`` counts it).
-    :meth:`state_dict` is ``{count, skipped, nu}``, ``nu`` in the model's
-    flax layout; :meth:`load_state_dict` reads it, or
-    ``utils.checkpoint.rms_state_from_optax`` of a JAX run's state.
-    ``accumulate_grad_batches > 1`` is not ported for RMSprop."""
+    parameters, ``ν``, the count and the accumulator stay, ``skipped``
+    counts it). ``accumulate_grad_batches = k > 1`` is ``optax.MultiSteps``
+    inside the guard, as for :class:`MultiGroupAdam`: RMSprop moves on the
+    mean of every k accepted micro-batches. :meth:`state_dict` is
+    ``{count, skipped, nu}`` (plus ``mini_step`` and ``acc_grads`` when
+    accumulating), ``nu`` and ``acc_grads`` in the model's flax layout;
+    :meth:`load_state_dict` reads it, or
+    ``utils.checkpoint.rms_state_from_optax`` of a JAX run's state."""
 
     #: optax.rmsprop's defaults, the post-net task's
     DECAY = 0.9
     EPS = 1e-8
 
-    def __init__(self, model: torch.nn.Module, schedule: Callable, guard_nan_grads: bool = True):
+    def __init__(self, model: torch.nn.Module, schedule: Callable, guard_nan_grads: bool = True,
+                 accumulate_grad_batches: int = 1):
         names, params = zip(*[(n, p) for n, p in model.named_parameters() if p.requires_grad])
         super().__init__([{"params": list(params), "param_names": list(names)}], {})
         self.layout = model
         self.schedule = schedule
         self.guard_nan_grads = bool(guard_nan_grads)
+        self.accumulate = int(accumulate_grad_batches)
         dev = params[0].device
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.skipped = torch.zeros((), dtype=torch.int32, device=dev)
+        #: accepted micro-batches since the last update (MultiSteps' ``mini_step``)
+        self.mini_step = torch.zeros((), dtype=torch.int32, device=dev)
 
-    def _nu(self, p: torch.Tensor) -> torch.Tensor:
+    def _slots(self, p: torch.Tensor) -> dict:
         st = self.state[p]
         if "nu" not in st:
             st["nu"] = torch.zeros_like(p)
-        return st["nu"]
+            if self.accumulate > 1:
+                st["acc"] = torch.zeros_like(p)
+        return st
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -313,36 +330,61 @@ class RMSprop(torch.optim.Optimizer):
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
         ok = torch.stack([torch.isfinite(g).all() for g in grads]).all()
         accept = ok if self.guard_nan_grads else torch.ones_like(ok)
+        for p in params:
+            self._slots(p)
+        if self.accumulate > 1:
+            grads, apply = _multi_steps(self, params, grads, accept)
+        else:
+            apply = accept
         step_size = -self.schedule(self.count.float())
         for p, g in zip(params, grads):
-            nu = (1.0 - self.DECAY) * (g * g) + self.DECAY * self._nu(p)
+            st = self.state[p]
+            nu = (1.0 - self.DECAY) * (g * g) + self.DECAY * st["nu"]
             upd = torch.rsqrt(nu + self.EPS) * g
-            p.copy_(torch.where(accept, p + step_size * upd, p))
-            self.state[p]["nu"] = torch.where(accept, nu, self.state[p]["nu"])
-        self.count = torch.where(accept, self.count + 1, self.count)
+            p.copy_(torch.where(apply, p + step_size * upd, p))
+            st["nu"] = torch.where(apply, nu, st["nu"])
+        self.count = torch.where(apply, self.count + 1, self.count)
         self.skipped = torch.where(accept, self.skipped, self.skipped + 1)
 
-    def state_dict(self) -> dict:
+    def _tree(self, slot: str) -> dict:
         g = self.param_groups[0]
-        return {
+        return flax_param_tree(self.layout, {
+            n: self._slots(p)[slot] for n, p in zip(g["param_names"], g["params"])})
+
+    def state_dict(self) -> dict:
+        out = {
             "count": self.count.cpu().numpy(),
             "skipped": self.skipped.cpu().numpy(),
-            "nu": flax_param_tree(self.layout, {
-                n: self._nu(p) for n, p in zip(g["param_names"], g["params"])}),
+            "nu": self._tree("nu"),
         }
+        if self.accumulate > 1:
+            out["mini_step"] = self.mini_step.cpu().numpy()
+            out["acc_grads"] = self._tree("acc")
+        return out
 
     def load_state_dict(self, state: dict) -> None:
         g = self.param_groups[0]
         dev = self.count.device
-        nu = param_values_from_flax(self.layout, state["nu"])
+        trees = {"nu": param_values_from_flax(self.layout, state["nu"])}
+        if self.accumulate > 1:
+            if "acc_grads" not in state:
+                raise ValueError("the checkpoint holds no accumulated gradients "
+                                 f"(accumulate_grad_batches {self.accumulate})")
+            trees["acc"] = param_values_from_flax(self.layout, state["acc_grads"])
+        elif "acc_grads" in state:
+            raise ValueError("the checkpoint was written with accumulate_grad_batches > 1")
         for n, p in zip(g["param_names"], g["params"]):
-            if n not in nu:
-                raise KeyError(f"the optimizer state holds no nu of {n}")
-            if tuple(nu[n].shape) != tuple(p.shape):
-                raise ValueError(f"nu of {n}: {nu[n].shape} != {tuple(p.shape)}")
-            self.state[p]["nu"] = torch.as_tensor(nu[n], dtype=p.dtype).to(dev)
+            st = self._slots(p)
+            for k, tree in trees.items():
+                if n not in tree:
+                    raise KeyError(f"the optimizer state holds no {k} of {n}")
+                if tuple(tree[n].shape) != tuple(p.shape):
+                    raise ValueError(f"{k} of {n}: {tree[n].shape} != {tuple(p.shape)}")
+                st[k] = torch.as_tensor(np.asarray(tree[n]), dtype=p.dtype).to(dev)
         self.count = torch.as_tensor(np.asarray(state["count"]), dtype=torch.int32).to(dev)
         self.skipped = torch.as_tensor(np.asarray(state["skipped"]), dtype=torch.int32).to(dev)
+        self.mini_step = torch.as_tensor(
+            np.asarray(state.get("mini_step", 0)), dtype=torch.int32).to(dev)
 
 
 def build_optimizer(model: torch.nn.Module, schedule: Callable, cfg) -> MultiGroupAdam:

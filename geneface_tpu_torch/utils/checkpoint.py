@@ -316,21 +316,29 @@ def adam_state_from_optax(state: Any) -> dict:
 
 def rms_state_from_optax(state: Any) -> dict:
     """A JAX post-net run's pickled ``gen_opt`` / ``disc_opt``
-    (``apply_if_finite(chain(scale_by_rms, scale_by_learning_rate))``) →
+    (``apply_if_finite([MultiSteps(]chain(scale_by_rms,
+    scale_by_learning_rate)[)])``) →
     :class:`~geneface_tpu_torch.training.optim.RMSprop`'s state ``{"count",
     "skipped", "nu"}``: the schedule's count, ``total_notfinite``, and
-    ``ScaleByRmsState.nu`` (a flax tree)."""
+    ``ScaleByRmsState.nu`` (a flax tree). A run with
+    ``accumulate_grad_batches > 1`` (``MultiStepsState``) adds
+    ``mini_step`` and ``acc_grads``; its RMSprop state is the inner one."""
     guard = state if isinstance(state, ApplyIfFiniteState) else None
     chain = state.inner_state if guard is not None else state
-    if isinstance(chain, MultiStepsState):
-        raise ValueError("accumulate_grad_batches > 1 with RMSprop is not ported")
+    multi = chain if isinstance(chain, MultiStepsState) else None
+    if multi is not None:
+        chain = multi.inner_opt_state
     chain = chain if isinstance(chain, tuple) else (chain,)
     rms = [s for s in chain if isinstance(s, ScaleByRmsState)]
     sched = [s for s in chain if isinstance(s, ScaleByScheduleState)]
     if len(rms) != 1 or len(sched) != 1:
         raise ValueError(f"not an optax.rmsprop state: {[type(s).__name__ for s in chain]}")
-    return {
+    out = {
         "count": np.asarray(sched[0].count, np.int32),
         "skipped": np.asarray(0 if guard is None else guard.total_notfinite, np.int32),
         "nu": rms[0].nu,
     }
+    if multi is not None:
+        out["mini_step"] = np.asarray(multi.mini_step, np.int32)
+        out["acc_grads"] = multi.acc_grads
+    return out

@@ -12,7 +12,8 @@ rows; every scatter variant at the model's shapes — each sum of n terms
 within 2·n·2⁻²⁴·Σ|u| of the plain version's, the first-order rounding bound
 of two summation orders (up to 655,360 terms land on one row, where a fixed
 atol would either fail or check nothing); a row gather is a copy — exact;
-the grid forward (corner sums in another order) rtol 1e-6, atol 1e-7; the
+the grid forward (corner sums in another order) rtol 1e-6, atol 1e-7, at
+the bf16 options too (the same bfloat16 roundings on both devices); the
 grid backward's table gradients (atomic order) rtol 1e-5, atol 1e-6·max,
 its input gradients rtol 1e-4, atol 1e-6·max (the reference and block
 encoders of the import layout are held so too); a float32 frame (head, or
@@ -317,6 +318,63 @@ def test_grid_backward_on_card_matches_cpu(card, D, need_input_grad):
     if need_input_grad:
         b = res["cpu"][2]
         torch.testing.assert_close(res["cuda"][2], b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
+
+
+#: the grid sites of the bf16 options (``grid_compute_dtype: bf16``): a
+#: group's rows gathered from its bfloat16 table, its bfloat16 updates
+#: scatter-added, at a 65,536-ray step's sample count
+BF16_GRID_SITES = {
+    "position_group_1": (655360, 224, 4096),
+    "ambient_group_1": (655360, 112, 5466),
+    "position_group_0": (655360, 32, 5832),
+    "torso_group_1": (65536, 112, 5466),
+}
+
+
+@pytest.mark.parametrize("site", list(BF16_GRID_SITES))
+def test_bf16_grid_sites_on_card_match_plain(card, site):
+    M, W, R = BF16_GRID_SITES[site]
+    gen = torch.Generator(device="cuda").manual_seed(M + W)
+    table = torch.randn(R, W, device=card, generator=gen).to(torch.bfloat16)
+    rows = torch.randint(0, R, (M,), device=card, generator=gen).int()
+    before = dict(LAUNCHES)
+    got = launch_gather_rows(table, rows)
+    assert got.dtype == torch.float32 and torch.equal(got, gather_rows_plain(table, rows))
+    upd = torch.randn(M, W, device=card, generator=gen).to(torch.bfloat16)
+    sums = launch_scatter_add_rows(rows, upd, R)
+    torch.cuda.synchronize()
+    assert LAUNCHES["gather_rows"] == before["gather_rows"] + 1
+    assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 1
+    _assert_within_rounding_bound(sums, rows, upd, R)
+
+
+@pytest.mark.parametrize("compute,bwd", [("bf16", "bf16"), ("mixed", "same"), ("f32", "bf16")])
+def test_grid_options_on_card_match_cpu(card, compute, bwd):
+    """The fused grid at the bf16 options on the card against the CPU (the
+    f32 test's bounds: the same bfloat16 roundings, sums in another order)."""
+    meta = make_grid_meta(input_dim=3, num_levels=8, level_dim=4, log2_hashmap_size=14,
+                          desired_resolution=2048, gridtype="tiled")
+    fmeta = make_fused_grid_meta(meta, compute=compute, bwd_compute=bwd)
+    gen = torch.Generator().manual_seed(7)
+    x = torch.rand(200000, 3, generator=gen)
+    params = [torch.rand(*((fmeta.dense_sides[gi] ** 3, 4) if fmeta.modes[gi] == "dense"
+                           else (fmeta.n_rows[gi], fmeta.group_width(gi))), generator=gen)
+              for gi in range(len(fmeta.groups))]
+    gout = torch.randn(200000, 32, generator=gen)
+    res = {}
+    for dev in ("cpu", card):
+        xs = x.clone().to(dev).requires_grad_(True)
+        ps = [p.clone().to(dev).requires_grad_(True) for p in params]
+        tables = [dense_view(p, fmeta, gi) if fmeta.modes[gi] == "dense" else p
+                  for gi, p in enumerate(ps)]
+        out = fused_grid_encode(xs, tables, fmeta)
+        out.backward(gout.to(dev))
+        res[str(dev)] = (out.detach().cpu(), [p.grad.cpu() for p in ps], xs.grad.cpu())
+    torch.testing.assert_close(res["cuda"][0], res["cpu"][0], rtol=1e-6, atol=1e-7)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()))
+    b = res["cpu"][2]
+    torch.testing.assert_close(res["cuda"][2], b, rtol=1e-4, atol=1e-6 * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("backend,D", [("reference", 3), ("reference", 2), ("block", 3),

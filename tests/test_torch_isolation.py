@@ -232,3 +232,55 @@ def test_parallel_and_native_import_no_jax():
                           capture_output=True, text=True, timeout=180)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1] == "ok"
+
+
+def test_chip_smoke_imports_only_the_port_and_its_libraries():
+    """Every import statement of ``chip_smoke.py`` (at any depth) names the
+    port, torch, numpy, scipy or the standard library: the script runs
+    from the port alone (its scene from the port's own
+    ``tools/make_synthetic_dataset.py``, not the JAX package's ``tools/``)."""
+    import ast
+
+    allowed = {"geneface_tpu_torch", "torch", "numpy", "scipy", "__future__"}
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, ast.dump(node)
+            names.add(node.module.split(".")[0])
+    assert "geneface_tpu_torch" in names and "torch" in names
+    bad = sorted(n for n in names if n not in allowed and n not in sys.stdlib_module_names)
+    assert not bad, bad
+
+
+def test_port_synthetic_dataset_is_the_tools_one(tmp_path):
+    """The port's copy of the synthetic scene writes the same arrays as the
+    JAX package's ``tools/make_synthetic_dataset.py``."""
+    import numpy as np
+
+    from geneface_tpu_torch.tools.make_synthetic_dataset import make_dataset
+
+    sys.path.insert(0, REPO)
+    from tools.make_synthetic_dataset import make_dataset as make_reference
+
+    got = np.load(make_dataset(str(tmp_path / "port"), n_frames=5, hw=24, seed=3),
+                  allow_pickle=True).item()
+    want = np.load(make_reference(str(tmp_path / "ref"), n_frames=5, hw=24, seed=3),
+                   allow_pickle=True).item()
+
+    def same(a, b, path=""):
+        assert type(a) is type(b), path
+        if isinstance(a, dict):
+            assert a.keys() == b.keys(), path
+            for k in a:
+                same(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (list, tuple)):
+            assert len(a) == len(b), path
+            for i, (x, y) in enumerate(zip(a, b)):
+                same(x, y, f"{path}/{i}")
+        else:
+            np.testing.assert_array_equal(a, b, err_msg=path)
+
+    same(got, want)

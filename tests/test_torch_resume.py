@@ -15,8 +15,10 @@ Tolerances, per check:
   parameter within atol 1e-7 and rtol 1e-6 of ``apply_if_finite(MultiSteps(
   ...))``, the counts exact; the same bounds for the 2 micro-steps after a
   JAX-written ``MultiStepsState`` is restored;
-- the work-dir listings of a 4-step run of each trainer: equal, but for the
-  JAX run's TensorBoard directory ``tb/`` (the port logs no TensorBoard);
+- the work-dir listings of a 4-step run of each trainer: equal, the
+  TensorBoard directory ``tb/`` included; its event records, read back with
+  TensorBoard's loader, carry the JAX run's tags at the JAX run's steps, and
+  the port's own ``metrics.jsonl`` values as float32;
 - the full val frame at the bf16 default: max abs 1e-3 and mean abs 1e-6
   per pixel (the bf16 bounds of ``tests/test_torch_infer.py``).
 """
@@ -124,7 +126,7 @@ def jax_run(scene):
 
 
 def _listing(work):
-    top = sorted(f for f in os.listdir(work) if f != "tb")
+    top = sorted(os.listdir(work))
     images = {d: sorted(os.listdir(os.path.join(work, "images", d)))
               for d in os.listdir(os.path.join(work, "images"))}
     return top, images
@@ -154,6 +156,38 @@ def test_work_dir_matches_jax_run(jax_run, scene):
         return [r["step"] for r in rows if "val/full_frame_psnr" in r]
 
     assert psnr_steps(work) == psnr_steps(cfg["work_dir"]) == [2, 4]
+
+    # the TensorBoard records: the JAX run's tags and steps, the port's values
+    def tb_records(w):
+        from tensorboard.backend.event_processing.event_file_loader import RawEventFileLoader
+        from tensorboard.compat.proto import event_pb2
+
+        out = {}
+        for path in sorted(os.listdir(os.path.join(w, "tb"))):
+            for raw in RawEventFileLoader(os.path.join(w, "tb", path)).Load():
+                ev = event_pb2.Event.FromString(raw)
+                for v in ev.summary.value:
+                    kind = "image" if v.HasField("image") else "scalar"
+                    out[(v.tag, ev.step, kind)] = v.simple_value
+        return out
+
+    def jsonl(w):
+        return {(k, r["step"]): v for r in map(json.loads, open(os.path.join(w, "metrics.jsonl")))
+                for k, v in r.items() if k not in ("step", "ts")}
+
+    got, want = tb_records(work), tb_records(cfg["work_dir"])
+    # every record the JAX writer had flushed (it flushes every 10 records or
+    # 120 s and is never closed, so the last ones are still queued here)
+    assert set(want) <= set(got) and ("val/render", 2, "image") in want
+    assert sorted(k[1] for k in got if k[2] == "image") == [2, 4]
+    # the scalars: the port's metrics.jsonl, the JAX run's tags and steps
+    # (and the port's own occupancy_sweep metric)
+    scalars = {k[:2]: v for k, v in got.items() if k[2] == "scalar"}
+    ours = jsonl(work)
+    assert scalars == {k: np.float32(v) for k, v in ours.items()}
+    theirs = set(jsonl(cfg["work_dir"]))
+    assert theirs <= set(ours)
+    assert {k for k, _ in set(ours) - theirs} == {"tr/occupancy_sweep"}
 
 
 def _assert_same_state(a: dict, b: dict, path=""):

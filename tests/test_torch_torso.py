@@ -14,7 +14,7 @@ to the port. Tolerances:
   wherever the sample is further than 1e-6 from the threshold, the sweep's
   grid and mean rtol 1e-6;
 - the walk: the same ``valid`` mask, and ``ts``/``dts``/``depth_ts`` within
-  1e-6 (both round ``o + t·d`` and ``t + k·dt`` once);
+  1e-6 (both round ``o + t·d`` and ``t + k·dt`` once); two cascades exact;
 - ``composite_rays``: rtol 1e-6, atol 1e-6; the inclusion mask exact;
 - conversion and partial restore: exact.
 """
@@ -241,10 +241,25 @@ def test_walk_matches_jax(branch, S, dt_gamma):
 
 
 def test_walk_refuses_cascades():
-    occ = torch.zeros(2, 8, 8, 8, dtype=torch.bool)
-    z = torch.zeros(4)
-    with pytest.raises(NotImplementedError):
-        march_rays_train(torch.zeros(4, 3), torch.ones(4, 3), occ, z, z, z, grid_size=8)
+    """The walk once refused more than one cascade; it now marches them as
+    the JAX walk does (``tests/test_torch_options.py`` holds it to JAX on
+    planted grids). A two-cascade grid at ``bound: 1`` reads cascade 0's
+    cells through cascade 1 too: the same samples as JAX's."""
+    H, occ1, ro, rd, noises = _walk_scene(8, seed=3)
+    occ = np.concatenate([occ1, occ1[:, ::-1]])  # cascade 1 differs from 0
+    aabb = jrend.make_aabb(1.0)
+    jn, jf = jrm.near_far_from_aabb(jnp.asarray(ro), jnp.asarray(rd), aabb, 0.05)
+    want = jrm.march_rays_train(
+        jnp.asarray(ro), jnp.asarray(rd), jnp.asarray(occ), jn, jf, jnp.asarray(noises),
+        bound=1.0, dt_gamma=1 / 256, max_steps=8, cascade=2, grid_size=H,
+    )
+    tn, tf = near_far_from_aabb(_t(ro), _t(rd), _t(aabb), 0.05)
+    got = march_rays_train(_t(ro), _t(rd), _t(occ.copy()), tn, tf, _t(noises),
+                           bound=1.0, dt_gamma=1 / 256, max_steps=8, grid_size=H)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert np.asarray(want.valid).any()
+    for k in ("ts", "dts", "depth_ts"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(want, k)))
 
 
 def test_composite_rays_matches_jax():

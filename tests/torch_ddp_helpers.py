@@ -91,30 +91,47 @@ def _start_ranks(spec_path: str, tmp: str, world: int, timeout: float) -> tuple:
 # ------------------------------------------------------------------ steps --
 def make_task(kind: str, cfg: dict, device: str = "cpu"):
     """A port task of ``kind`` on ``device``, float32 MLPs."""
+    from geneface_tpu_torch.tasks.audio2motion import VAESyncAudio2MotionTask
+    from geneface_tpu_torch.tasks.audio2pose import Audio2PoseTask
     from geneface_tpu_torch.tasks.lm3d_nerf import Lm3dNeRFTask
     from geneface_tpu_torch.tasks.postnet import PostnetAdvSyncTask
     from geneface_tpu_torch.tasks.radnerf import RADNeRFTask
     from geneface_tpu_torch.tasks.radnerf_torso import RADNeRFTorsoTask
+    from geneface_tpu_torch.tasks.syncnet import SyncNetTask
 
-    if kind == "nerf":
-        return Lm3dNeRFTask(cfg, device=device)
-    if kind == "postnet":
-        return PostnetAdvSyncTask(cfg, device=device)
+    stage_a = {"nerf": Lm3dNeRFTask, "postnet": PostnetAdvSyncTask, "syncnet": SyncNetTask,
+               "vae": VAESyncAudio2MotionTask, "audio2pose": Audio2PoseTask}
+    if kind in stage_a:
+        return stage_a[kind](cfg, device=device)
     cls = {"head": RADNeRFTask, "lip": RADNeRFTask, "torso": RADNeRFTorsoTask}[kind]
     return cls(cfg, device=device, dtype=torch.float32)
 
 
 def step_result(kind: str, cfg: dict, batches: list, task_step: int = 0,
-                state: dict | None = None, device: str = "cpu") -> dict:
+                state: dict | None = None, device: str = "cpu", skew: float = 0.0) -> dict:
     """Build the task (the mesh when a process group is up), load
     ``state`` (a checkpoint's), then one ``train_step`` per batch of
     ``batches`` from ``task_step``, recording the gradients each optimizer
     step applies (the post-net's two per step: the generator's, then the
     discriminator's) → ``{"losses": [..], "grads": [..], "occ": ..,
-    "params": ..}`` as numpy."""
+    "params": ..}`` as numpy. ``skew``: rank ``r`` adds ``skew · r`` to
+    every gradient before the task averages them over the ranks (ranks
+    whose gradients differ in their last bits, as K1's atomic order can
+    make them on the card)."""
     task = make_task(kind, cfg, device)
     task.setup_mesh()
     task.build()
+    if skew and task.mesh is not None:
+        real_sync, rank = task.sync_grads, dist.get_rank()
+
+        def skewed(params):
+            params = list(params)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.add_(skew * rank)
+            real_sync(params)
+
+        task.sync_grads = skewed
     if state is not None:
         task.restore_state(state)
     task.place_state()
