@@ -1,0 +1,8 @@
+"""K1 (the row scatter-add) over the training window: the HBM bound of
+every call over the device time of its kernels, in percent."""
+
+from pbcore.readers import roofline_percent
+
+
+def read(ctx):
+    return roofline_percent(ctx, "k1")
