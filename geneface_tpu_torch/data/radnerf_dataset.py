@@ -27,6 +27,7 @@ import queue
 import threading
 
 import numpy as np
+from torch.profiler import record_function
 
 from geneface_tpu_torch.utils.camera import (
     convert_poses,
@@ -283,7 +284,10 @@ class RADNeRFDataset:
         it = indices()
         if not prefetch:
             for i in it:
-                yield self[int(i)]
+                # the wait opens and closes inside one next(): never across a yield
+                with record_function("gf::data_wait"):
+                    item = self[int(i)]
+                yield item
             return
         jobs: queue.Queue = queue.Queue(maxsize=2)
         results: queue.Queue = queue.Queue(maxsize=2)
@@ -305,7 +309,8 @@ class RADNeRFDataset:
             jobs.put(int(next(it)))
             for i in it:
                 jobs.put(int(i))
-                item, err = results.get()
+                with record_function("gf::data_wait"):
+                    item, err = results.get()
                 if err is not None:
                     raise err
                 yield item

@@ -34,6 +34,7 @@ import time
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from geneface_tpu_torch.data.radnerf_dataset import get_cond_window
 from geneface_tpu_torch.utils.camera import get_rays
@@ -165,40 +166,41 @@ class RealtimeRenderer:
         """The host inputs of the next frame at the current rung: the
         camera's rays, the background, the torso's screen coordinates, the
         condition window and the pose (numpy)."""
-        ds = self.ds
-        H, W = self._resolution()
-        fx, fy, cx, cy = [float(v) for v in cam.intrinsics]
-        scale_h = H / cam.H
-        scale_w = W / cam.W
-        intr = (fx * scale_w, fy * scale_h, cx * scale_w, cy * scale_h)
-        rays = get_rays(cam.pose, intr, H, W)
-        conds = cond_wins_all if cond_wins_all is not None else ds.conds
-        i = self.cond_index % len(conds)
-        cond = get_cond_window(conds, i, self.infer.cfg.get("smo_win_size", 5))
-        item = ds[i % len(ds)]
-        if self.bg_color is not None:
-            bg = np.broadcast_to(
-                np.asarray(self.bg_color, np.float32).reshape(1, 3), (H * W, 3)
-            ).copy()
-        else:
-            bg_key = "bg_img" if self.infer.torso else "bg_torso_img"
-            bg = np.asarray(item[bg_key]).reshape(ds.H, ds.W, 3)
-            # nearest-resample the background to the render resolution
-            yi = (np.arange(H) * ds.H // H)[:, None]
-            xi = (np.arange(W) * ds.W // W)[None, :]
-            bg = bg[yi, xi].reshape(-1, 3)
-        # the JAX viewer's own coordinates: the column first (the dataset's
-        # get_bg_coords puts the row first), kept as the oracle has them
-        bg_coords = np.stack(
-            [
-                (np.arange(H * W) % W) / max(W - 1, 1) * 2 - 1,
-                (np.arange(H * W) // W) / max(H - 1, 1) * 2 - 1,
-            ],
-            axis=-1,
-        ).astype(np.float32)
-        return {"H": H, "W": W, "rays_o": rays["rays_o"], "rays_d": rays["rays_d"], "bg": bg,
-                "bg_coords": bg_coords, "cond": cond, "pose": item["pose"],
-                "ray_capacity": self.ray_capacity(H, W)}
+        with record_function("gf::inputs"):
+            ds = self.ds
+            H, W = self._resolution()
+            fx, fy, cx, cy = [float(v) for v in cam.intrinsics]
+            scale_h = H / cam.H
+            scale_w = W / cam.W
+            intr = (fx * scale_w, fy * scale_h, cx * scale_w, cy * scale_h)
+            rays = get_rays(cam.pose, intr, H, W)
+            conds = cond_wins_all if cond_wins_all is not None else ds.conds
+            i = self.cond_index % len(conds)
+            cond = get_cond_window(conds, i, self.infer.cfg.get("smo_win_size", 5))
+            item = ds[i % len(ds)]
+            if self.bg_color is not None:
+                bg = np.broadcast_to(
+                    np.asarray(self.bg_color, np.float32).reshape(1, 3), (H * W, 3)
+                ).copy()
+            else:
+                bg_key = "bg_img" if self.infer.torso else "bg_torso_img"
+                bg = np.asarray(item[bg_key]).reshape(ds.H, ds.W, 3)
+                # nearest-resample the background to the render resolution
+                yi = (np.arange(H) * ds.H // H)[:, None]
+                xi = (np.arange(W) * ds.W // W)[None, :]
+                bg = bg[yi, xi].reshape(-1, 3)
+            # the JAX viewer's own coordinates: the column first (the dataset's
+            # get_bg_coords puts the row first), kept as the oracle has them
+            bg_coords = np.stack(
+                [
+                    (np.arange(H * W) % W) / max(W - 1, 1) * 2 - 1,
+                    (np.arange(H * W) // W) / max(H - 1, 1) * 2 - 1,
+                ],
+                axis=-1,
+            ).astype(np.float32)
+            return {"H": H, "W": W, "rays_o": rays["rays_o"], "rays_d": rays["rays_d"], "bg": bg,
+                    "bg_coords": bg_coords, "cond": cond, "pose": item["pose"],
+                    "ray_capacity": self.ray_capacity(H, W)}
 
     @torch.inference_mode()
     def render(self, cam: OrbitCamera, cond_wins_all=None) -> np.ndarray:

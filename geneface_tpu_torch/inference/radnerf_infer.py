@@ -21,6 +21,7 @@ import subprocess
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from geneface_tpu_torch import parallel, resolve_device
 from geneface_tpu_torch.convert import flax_to_state_dict
@@ -161,41 +162,43 @@ class RADNeRFInfer:
         """Raw idexp lm3d [T, 68, 3] → normalized cond windows [T, W, 204]:
         normalize, clamp, LLE (``infer_lm3d_lle_percent > 0``), EMA,
         Gaussian, windows."""
-        cfg = self.cfg
-        mean = np.asarray(self.dataset.idexp_lm3d_mean)
-        std = np.asarray(self.dataset.idexp_lm3d_std)
-        lm = (idexp_lm3d.reshape(-1, 68, 3) - mean) / std
-        lm = clamp_lm3d_regions(lm, cfg.get("infer_lm3d_clamp_std", 2.5))
-        lle_percent = cfg.get("infer_lm3d_lle_percent", 0.0)
-        # LLE toward the video's own (first-window) conditions; conditions
-        # that are not landmark windows skip it, as in the JAX package
-        if lle_percent > 0 and self.dataset.conds.ndim == 3:
-            db = self.dataset.conds[:, 0].reshape(-1, 68, 3)
-            lm = lle_project_lm3d(lm, db, lle_percent, device=self.device)
-        lm = ema_smooth_lm3d(lm)
-        lm = gaussian_smooth_lm3d(lm, cfg.get("infer_lm3d_smooth_sigma", 0.0))
-        flat = lm.reshape(-1, 204).astype(np.float32)
-        W = cfg.get("cond_win_size", 1)
-        return np.stack([get_win_conds(flat, i, W, "edge") for i in range(len(flat))])
+        with record_function("gf::conds"):
+            cfg = self.cfg
+            mean = np.asarray(self.dataset.idexp_lm3d_mean)
+            std = np.asarray(self.dataset.idexp_lm3d_std)
+            lm = (idexp_lm3d.reshape(-1, 68, 3) - mean) / std
+            lm = clamp_lm3d_regions(lm, cfg.get("infer_lm3d_clamp_std", 2.5))
+            lle_percent = cfg.get("infer_lm3d_lle_percent", 0.0)
+            # LLE toward the video's own (first-window) conditions; conditions
+            # that are not landmark windows skip it, as in the JAX package
+            if lle_percent > 0 and self.dataset.conds.ndim == 3:
+                db = self.dataset.conds[:, 0].reshape(-1, 68, 3)
+                lm = lle_project_lm3d(lm, db, lle_percent, device=self.device)
+            lm = ema_smooth_lm3d(lm)
+            lm = gaussian_smooth_lm3d(lm, cfg.get("infer_lm3d_smooth_sigma", 0.0))
+            flat = lm.reshape(-1, 204).astype(np.float32)
+            W = cfg.get("cond_win_size", 1)
+            return np.stack([get_win_conds(flat, i, W, "edge") for i in range(len(flat))])
 
     def prepare(self) -> None:
         """Per-video constants: ray capacity + k-DOP, occupancy blocks, grid
         views; for the torso its grid views and its occupancy mask over the
         dataset's screen coordinates."""
-        self.ray_capacity = self._pick_ray_capacity()
-        if self.ray_capacity is None:
-            self.cull_kdop = None
-        self._occ_view = occupancy_view(self.occ_grid, self.render_kwargs["bound"])
-        with torch.inference_mode():
-            self._tables = self.model.grid_tables()
-            if self.torso:
-                self._torso_tables = self.model.torso_grid_tables()
-                self.torso_mask = torso_occupancy_mask(
-                    self.torso_occ,
-                    torch.as_tensor(self.dataset.bg_coords, device=self.device),
-                    self.render_kwargs["grid_size"],
-                    float(self.cfg.get("density_thresh_torso", 0.01)),
-                )
+        with record_function("gf::prepare"):
+            self.ray_capacity = self._pick_ray_capacity()
+            if self.ray_capacity is None:
+                self.cull_kdop = None
+            self._occ_view = occupancy_view(self.occ_grid, self.render_kwargs["bound"])
+            with torch.inference_mode():
+                self._tables = self.model.grid_tables()
+                if self.torso:
+                    self._torso_tables = self.model.torso_grid_tables()
+                    self.torso_mask = torso_occupancy_mask(
+                        self.torso_occ,
+                        torch.as_tensor(self.dataset.bg_coords, device=self.device),
+                        self.render_kwargs["grid_size"],
+                        float(self.cfg.get("density_thresh_torso", 0.01)),
+                    )
 
     @torch.inference_mode()
     def render_frame(self, i: int, conds: np.ndarray | None = None) -> dict:
@@ -204,17 +207,19 @@ class RADNeRFInfer:
         output dict (``rgb_map`` [H*W, 3] float32, ...)."""
         ds = self.dataset
         dev = self.device
-        conds = ds.conds if conds is None else conds
-        item = ds[i % len(ds)]
-        cond = get_cond_window(conds, i, self.cfg.get("smo_win_size", 5))
-        bg = item["bg_img"] if self.torso else item["bg_torso_img"]
-        return self.render_rays(
-            *(torch.as_tensor(item[k], device=dev) for k in ("rays_o", "rays_d")),
-            torch.as_tensor(bg, device=dev),
-            torch.as_tensor(item["bg_coords"], device=dev) if self.torso else None, cond,
-            torch.as_tensor(item["pose"], device=dev), 0,
-            ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop,
-            torso_mask=self.torso_mask)
+        with record_function("gf::frame_inputs"):
+            conds = ds.conds if conds is None else conds
+            item = ds[i % len(ds)]
+            cond = get_cond_window(conds, i, self.cfg.get("smo_win_size", 5))
+            bg = item["bg_img"] if self.torso else item["bg_torso_img"]
+            args = (
+                *(torch.as_tensor(item[k], device=dev) for k in ("rays_o", "rays_d")),
+                torch.as_tensor(bg, device=dev),
+                torch.as_tensor(item["bg_coords"], device=dev) if self.torso else None, cond,
+                torch.as_tensor(item["pose"], device=dev), 0,
+            )
+        return self.render_rays(*args, ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop,
+                                torso_mask=self.torso_mask)
 
     @torch.inference_mode()
     def render_rays(self, rays_o: torch.Tensor, rays_d: torch.Tensor, bg: torch.Tensor,
@@ -234,9 +239,10 @@ class RADNeRFInfer:
         ``max_steps``, ``T_thresh`` (``None``: the config's) → the
         renderer's output dict."""
         model = self.model
-        cond_feat = model.cal_cond_feat(torch.as_tensor(cond_wins, device=self.device))
-        codes = model.individual_embeddings
-        ind = codes[int(ind_index) % codes.shape[0]] if codes is not None else None
+        with record_function("gf::cond"):
+            cond_feat = model.cal_cond_feat(torch.as_tensor(cond_wins, device=self.device))
+            codes = model.individual_embeddings
+            ind = codes[int(ind_index) % codes.shape[0]] if codes is not None else None
         tables = self._tables
 
         def field_fn(xyz, dirs):
@@ -281,9 +287,11 @@ class RADNeRFInfer:
         frames = []
         for lo in range(0, T, n):
             rgb = self.render_frame(min(lo + r, T - 1), conds)["rgb_map"]
-            group = parallel.all_gather_slots(mesh, rgb.float().reshape(ds.H, ds.W, 3))
-            frames.extend(_to_u8(group[k]) for k in range(min(n, T - lo)))
-        return np.stack(frames)
+            with record_function("gf::frame_out"):
+                group = parallel.all_gather_slots(mesh, rgb.float().reshape(ds.H, ds.W, 3))
+                frames.extend(_to_u8(group[k]) for k in range(min(n, T - lo)))
+        with record_function("gf::frame_out"):
+            return np.stack(frames)
 
     def render_video(self, idexp_lm3d: np.ndarray | None = None,
                      out_path: str = "infer_out/pred_video/out.mp4",

@@ -34,6 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from geneface_tpu_torch.ops.scatter import gather_rows, launch_gather_rows, launch_scatter_add_rows
 
@@ -607,55 +608,57 @@ class _FastGridEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        bmeta = ctx.bmeta
-        meta = bmeta.base
-        D, C, L = meta.input_dim, meta.level_dim, meta.num_levels
-        K = 1 << D
-        saved = ctx.saved_tensors
-        oob, comps = saved[0], list(saved[1 : 1 + D])
-        rows_idx = saved[1 + D : 1 + D + L]
-        rows_saved = saved[1 + D + L :]
-        g2 = torch.where(oob[:, None], 0.0, gout.float())
-        bits = _corner_bits(D, g2.device)
-        grad_comps = [torch.zeros_like(comps[0]) for _ in range(D)] if ctx.input_grad else None
-        g_parts = []
-        for lvl in range(L):
-            g_lvl = g2[:, lvl * C : (lvl + 1) * C]  # [M, C]
-            frac = _level_base_frac(comps, meta, lvl)[1]
-            w = _corner_weights(frac, K)  # [M, K]
+        with record_function("gf::grid_backward"):
+            bmeta = ctx.bmeta
+            meta = bmeta.base
+            D, C, L = meta.input_dim, meta.level_dim, meta.num_levels
+            K = 1 << D
+            saved = ctx.saved_tensors
+            oob, comps = saved[0], list(saved[1 : 1 + D])
+            rows_idx = saved[1 + D : 1 + D + L]
+            rows_saved = saved[1 + D + L :]
+            g2 = torch.where(oob[:, None], 0.0, gout.float())
+            bits = _corner_bits(D, g2.device)
+            grad_comps = [torch.zeros_like(comps[0]) for _ in range(D)] if ctx.input_grad else None
+            g_parts = []
+            for lvl in range(L):
+                g_lvl = g2[:, lvl * C : (lvl + 1) * C]  # [M, C]
+                frac = _level_base_frac(comps, meta, lvl)[1]
+                w = _corner_weights(frac, K)  # [M, K]
+                if ctx.needs_input_grad[1]:
+                    site = (bmeta, lvl, "block")  # noqa: F841 (names the launch)
+                    upd = (w[:, :, None] * g_lvl[:, None, :]).reshape(-1, K * C)
+                    g_parts.append(
+                        launch_scatter_add_rows(rows_idx[lvl], upd, bmeta.level_rows(lvl)))
+                if not ctx.input_grad:
+                    continue
+                # d out / d frac_d = Σ_k sign_d(k) Π_{d'≠d} w_d'(k) · rows_k·g
+                vg = (rows_saved[lvl] * g_lvl[:, None, :]).sum(dim=-1)  # [M, K]
+                scale = level_scale(meta, lvl)
+                for d in range(D):
+                    sign = torch.where(bits[None, :, d] == 1, 1.0, -1.0)
+                    wpart = None
+                    for dd in range(D):
+                        if dd == d:
+                            continue
+                        wdd = torch.where(bits[None, :, dd] == 1, frac[dd][:, None],
+                                          1.0 - frac[dd][:, None])
+                        wpart = wdd if wpart is None else wpart * wdd
+                    terms = sign * (wpart if wpart is not None else 1.0) * vg
+                    dw = terms.sum(dim=-1)
+                    if meta.interpolation == "smoothstep":
+                        pos = comps[d] * scale + (0.0 if meta.align_corners else 0.5)
+                        raw = pos - torch.floor(pos)
+                        dw = dw * (6.0 * raw * (1.0 - raw))
+                    grad_comps[d] = grad_comps[d] + dw * scale
+            grad_emb = None
             if ctx.needs_input_grad[1]:
-                site = (bmeta, lvl, "block")  # noqa: F841 (names the launch)
-                upd = (w[:, :, None] * g_lvl[:, None, :]).reshape(-1, K * C)
-                g_parts.append(launch_scatter_add_rows(rows_idx[lvl], upd, bmeta.level_rows(lvl)))
-            if not ctx.input_grad:
-                continue
-            # d out / d frac_d = Σ_k sign_d(k) Π_{d'≠d} w_d'(k) · rows_k·g
-            vg = (rows_saved[lvl] * g_lvl[:, None, :]).sum(dim=-1)  # [M, K]
-            scale = level_scale(meta, lvl)
-            for d in range(D):
-                sign = torch.where(bits[None, :, d] == 1, 1.0, -1.0)
-                wpart = None
-                for dd in range(D):
-                    if dd == d:
-                        continue
-                    wdd = torch.where(bits[None, :, dd] == 1, frac[dd][:, None],
-                                      1.0 - frac[dd][:, None])
-                    wpart = wdd if wpart is None else wpart * wdd
-                terms = sign * (wpart if wpart is not None else 1.0) * vg
-                dw = terms.sum(dim=-1)
-                if meta.interpolation == "smoothstep":
-                    pos = comps[d] * scale + (0.0 if meta.align_corners else 0.5)
-                    raw = pos - torch.floor(pos)
-                    dw = dw * (6.0 * raw * (1.0 - raw))
-                grad_comps[d] = grad_comps[d] + dw * scale
-        grad_emb = None
-        if ctx.needs_input_grad[1]:
-            grad_emb = _block_tables_adjoint(g_parts, bmeta).to(ctx.emb_dtype)
-        if grad_comps is not None:
-            grad_comps = [torch.where(oob, 0.0, gc) for gc in grad_comps]
-        else:
-            grad_comps = [None] * D
-        return (None, grad_emb, *grad_comps)
+                grad_emb = _block_tables_adjoint(g_parts, bmeta).to(ctx.emb_dtype)
+            if grad_comps is not None:
+                grad_comps = [torch.where(oob, 0.0, gc) for gc in grad_comps]
+            else:
+                grad_comps = [None] * D
+            return (None, grad_emb, *grad_comps)
 
 
 def fast_grid_encode(inputs, embeddings: torch.Tensor, bmeta: BlockGridMeta) -> torch.Tensor:

@@ -35,6 +35,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from geneface_tpu_torch.ops.encoders import HASH_PRIMES, GridMeta, level_scale, parity_copies
 from geneface_tpu_torch.ops.scatter import launch_gather_rows, launch_scatter_add_rows
@@ -286,49 +287,50 @@ class _FusedGridEncode(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gout):
-        fmeta = ctx.fmeta
-        meta = fmeta.base
-        D, C = meta.input_dim, meta.level_dim
-        K = 1 << D
-        n_groups = len(fmeta.groups)
-        saved = ctx.saved_tensors
-        oob, comps = saved[0], list(saved[1 : 1 + D])
-        rows_idx = saved[1 + D : 1 + D + n_groups]
-        rows_saved = saved[1 + D + n_groups :]
-        M = comps[0].shape[0]
-        g2 = torch.where(oob[:, None], 0.0, gout.float())
-        grad_comps = [None] * D
-        grad_tables = [None] * n_groups
-        for gi, g in enumerate(fmeta.groups):
-            G = len(g)
-            bf16 = fmeta.group_bwd_bf16(gi)
-            gg = _round(g2[:, g[0] * C : (g[-1] + 1) * C], bf16).reshape(M, G, 1, C)
-            w_ax, chain = _axis_weights(comps, meta, g, K)
-            if ctx.needs_input_grad[2 + D + gi]:
-                upd = _round(_prod(w_ax), bf16)[..., None] * gg
-                # bf16: K1 adds the rounded products as bfloat16 updates
-                upd = (upd.to(torch.bfloat16) if bf16 else upd).reshape(M, G * K * C)
-                grad_tables[gi] = launch_scatter_add_rows(rows_idx[gi], upd, fmeta.n_rows[gi],
-                                                          spread=fmeta.spread)
-            if not ctx.input_grad:
-                continue
-            if fmeta.bwd_compute == "bf16":
-                w_ax = [_round(w, True) for w in w_ax]  # the half-width residuals
-            # d out / d comp_d = Σ_k rows · sign_d(k) · chain_d · Π_{d'≠d} w_d'
-            rg = _round(rows_saved[gi].float() * gg, bf16).sum(dim=-1)  # [M, G, K]
-            bits = torch.arange(K, device=rg.device)
-            for d in range(D):
-                sign = 2.0 * ((bits >> d) & 1).float() - 1.0  # [K]
-                cd = chain[d][..., None]  # [M, G, 1] or [G, 1]
-                others = [w_ax[e] for e in range(D) if e != d]
-                term = rg * sign * cd
-                if others:
-                    term = term * _prod(others, fmeta.bwd_compute == "bf16")
-                contrib = term.sum(dim=(1, 2))
-                grad_comps[d] = contrib if grad_comps[d] is None else grad_comps[d] + contrib
-        if ctx.input_grad:
-            grad_comps = [torch.where(oob, 0.0, gc) for gc in grad_comps]
-        return (None, None, *grad_comps, *grad_tables)
+        with record_function("gf::grid_backward"):
+            fmeta = ctx.fmeta
+            meta = fmeta.base
+            D, C = meta.input_dim, meta.level_dim
+            K = 1 << D
+            n_groups = len(fmeta.groups)
+            saved = ctx.saved_tensors
+            oob, comps = saved[0], list(saved[1 : 1 + D])
+            rows_idx = saved[1 + D : 1 + D + n_groups]
+            rows_saved = saved[1 + D + n_groups :]
+            M = comps[0].shape[0]
+            g2 = torch.where(oob[:, None], 0.0, gout.float())
+            grad_comps = [None] * D
+            grad_tables = [None] * n_groups
+            for gi, g in enumerate(fmeta.groups):
+                G = len(g)
+                bf16 = fmeta.group_bwd_bf16(gi)
+                gg = _round(g2[:, g[0] * C : (g[-1] + 1) * C], bf16).reshape(M, G, 1, C)
+                w_ax, chain = _axis_weights(comps, meta, g, K)
+                if ctx.needs_input_grad[2 + D + gi]:
+                    upd = _round(_prod(w_ax), bf16)[..., None] * gg
+                    # bf16: K1 adds the rounded products as bfloat16 updates
+                    upd = (upd.to(torch.bfloat16) if bf16 else upd).reshape(M, G * K * C)
+                    grad_tables[gi] = launch_scatter_add_rows(rows_idx[gi], upd, fmeta.n_rows[gi],
+                                                              spread=fmeta.spread)
+                if not ctx.input_grad:
+                    continue
+                if fmeta.bwd_compute == "bf16":
+                    w_ax = [_round(w, True) for w in w_ax]  # the half-width residuals
+                # d out / d comp_d = Σ_k rows · sign_d(k) · chain_d · Π_{d'≠d} w_d'
+                rg = _round(rows_saved[gi].float() * gg, bf16).sum(dim=-1)  # [M, G, K]
+                bits = torch.arange(K, device=rg.device)
+                for d in range(D):
+                    sign = 2.0 * ((bits >> d) & 1).float() - 1.0  # [K]
+                    cd = chain[d][..., None]  # [M, G, 1] or [G, 1]
+                    others = [w_ax[e] for e in range(D) if e != d]
+                    term = rg * sign * cd
+                    if others:
+                        term = term * _prod(others, fmeta.bwd_compute == "bf16")
+                    contrib = term.sum(dim=(1, 2))
+                    grad_comps[d] = contrib if grad_comps[d] is None else grad_comps[d] + contrib
+            if ctx.input_grad:
+                grad_comps = [torch.where(oob, 0.0, gc) for gc in grad_comps]
+            return (None, None, *grad_comps, *grad_tables)
 
 
 def fused_grid_encode(

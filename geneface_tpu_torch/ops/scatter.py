@@ -31,6 +31,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
 
 from geneface_tpu_torch.kernels import LAUNCHES
 from geneface_tpu_torch.ops.gather import gather_rows_plain, launch_gather_rows
@@ -220,69 +221,73 @@ def launch_scatter_add_rows(
     for the shape (and ``spread``); ``variant`` forces one (for measurements and tests; a
     variant that does not take the shape raises ``ValueError``). One call
     counts as one launch whatever the variant."""
-    _check(rows, updates, n_rows)
-    M, W = updates.shape
-    n_rows = int(n_rows)
-    itemsize = updates.element_size()
-    aligned = updates.data_ptr() % 16 == 0
-    if variant is None:
-        variant = pick_scatter_variant(M, W, n_rows, itemsize, aligned, spread)
-    elif not scatter_variant_accepts(variant, M, W, n_rows, itemsize, aligned):
-        raise ValueError(
-            f"scatter variant {variant!r} does not take updates [{M}, {W}] "
-            f"({'aligned' if aligned else 'unaligned'}) into [{n_rows}, {W}]"
-        )
-    if updates.device.type == "cpu":
-        return scatter_add_rows_plain(rows, updates, n_rows)
-    if updates.device.type != "cuda":
-        raise ValueError(f"unsupported device {updates.device}")
-    from geneface_tpu_torch.kernels import load_kernel
-
-    lib = load_kernel("scatter_add_rows")
-    dev = updates.device
-    head = (rows.data_ptr(), updates.data_ptr())
-    tail = (M, W, n_rows, _DTYPE_CODES[updates.dtype])
-    vec_width = 4 if W % 4 == 0 else 2  # columns per vector load and atomic
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        if variant == "smem" and M > 0 and W > 0:
-            V = vec_width if aligned and W % 2 == 0 else 1
-            sms = torch.cuda.get_device_properties(dev).multi_processor_count
-            blocks, copies, stride = smem_plan(M, W, n_rows, V, sms)
-            # the second kernel writes every output element: no zero fill
-            out = torch.empty(n_rows, W, dtype=torch.float32, device=dev)
-            scratch = torch.empty(blocks * n_rows * W, dtype=torch.float32, device=dev)
-            rc = _bind(lib, "gf_scatter_add_rows_smem", 4, scratch=True)(
-                *head, out.data_ptr(), scratch.data_ptr(), *tail, V, blocks, copies,
-                stride, stream,
+    # a host range of the profiler's operator scope, not a user annotation: the
+    # profiler gives each kernel to the innermost user annotation alone, so a
+    # record_function here would take the kernels from a caller's span
+    with _RecordFunctionFast("gf::k1"):
+        _check(rows, updates, n_rows)
+        M, W = updates.shape
+        n_rows = int(n_rows)
+        itemsize = updates.element_size()
+        aligned = updates.data_ptr() % 16 == 0
+        if variant is None:
+            variant = pick_scatter_variant(M, W, n_rows, itemsize, aligned, spread)
+        elif not scatter_variant_accepts(variant, M, W, n_rows, itemsize, aligned):
+            raise ValueError(
+                f"scatter variant {variant!r} does not take updates [{M}, {W}] "
+                f"({'aligned' if aligned else 'unaligned'}) into [{n_rows}, {W}]"
             )
-        else:
-            out = torch.zeros(n_rows, W, dtype=torch.float32, device=dev)
-            if variant == "vec":
-                rc = _bind(lib, "gf_scatter_add_rows_vec", 1)(
-                    *head, out.data_ptr(), *tail, vec_width, stream)
-            elif variant == "sorted":
+        if updates.device.type == "cpu":
+            return scatter_add_rows_plain(rows, updates, n_rows)
+        if updates.device.type != "cuda":
+            raise ValueError(f"unsupported device {updates.device}")
+        from geneface_tpu_torch.kernels import load_kernel
+
+        lib = load_kernel("scatter_add_rows")
+        dev = updates.device
+        head = (rows.data_ptr(), updates.data_ptr())
+        tail = (M, W, n_rows, _DTYPE_CODES[updates.dtype])
+        vec_width = 4 if W % 4 == 0 else 2  # columns per vector load and atomic
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream().cuda_stream
+            if variant == "smem" and M > 0 and W > 0:
+                V = vec_width if aligned and W % 2 == 0 else 1
                 sms = torch.cuda.get_device_properties(dev).multi_processor_count
-                # an even number of blocks keeps the (index, row) pairs behind
-                # their row counts 8-byte aligned
-                blocks = 2 * max(1, min(sms // 2, -(-M // (2 * SORT_THREADS))))
-                scratch = torch.empty(
-                    n_rows * blocks + n_rows + 2 + 2 * M, dtype=torch.int32, device=dev)
-                rc = _bind(lib, "gf_scatter_add_rows_sorted", 2, scratch=True)(
-                    *head, out.data_ptr(), scratch.data_ptr(), *tail, vec_width, blocks,
-                    stream,
+                blocks, copies, stride = smem_plan(M, W, n_rows, V, sms)
+                # the second kernel writes every output element: no zero fill
+                out = torch.empty(n_rows, W, dtype=torch.float32, device=dev)
+                scratch = torch.empty(blocks * n_rows * W, dtype=torch.float32, device=dev)
+                rc = _bind(lib, "gf_scatter_add_rows_smem", 4, scratch=True)(
+                    *head, out.data_ptr(), scratch.data_ptr(), *tail, V, blocks, copies,
+                    stride, stream,
                 )
-            elif variant == "runs":
-                rc = _bind(lib, "gf_scatter_add_rows_runs", 0)(
-                    *head, out.data_ptr(), *tail, stream)
             else:
-                rc = _bind(lib, "gf_scatter_add_rows", 0)(
-                    *head, out.data_ptr(), *tail, stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"scatter_add_rows kernel ({variant}) launch failed: cudaError {rc}")
-    LAUNCHES["scatter_add_rows"] += 1
-    return out
+                out = torch.zeros(n_rows, W, dtype=torch.float32, device=dev)
+                if variant == "vec":
+                    rc = _bind(lib, "gf_scatter_add_rows_vec", 1)(
+                        *head, out.data_ptr(), *tail, vec_width, stream)
+                elif variant == "sorted":
+                    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+                    # an even number of blocks keeps the (index, row) pairs behind
+                    # their row counts 8-byte aligned
+                    blocks = 2 * max(1, min(sms // 2, -(-M // (2 * SORT_THREADS))))
+                    scratch = torch.empty(
+                        n_rows * blocks + n_rows + 2 + 2 * M, dtype=torch.int32, device=dev)
+                    rc = _bind(lib, "gf_scatter_add_rows_sorted", 2, scratch=True)(
+                        *head, out.data_ptr(), scratch.data_ptr(), *tail, vec_width, blocks,
+                        stream,
+                    )
+                elif variant == "runs":
+                    rc = _bind(lib, "gf_scatter_add_rows_runs", 0)(
+                        *head, out.data_ptr(), *tail, stream)
+                else:
+                    rc = _bind(lib, "gf_scatter_add_rows", 0)(
+                        *head, out.data_ptr(), *tail, stream)
+        if rc != 0:
+            raise RuntimeError(
+                f"scatter_add_rows kernel ({variant}) launch failed: cudaError {rc}")
+        LAUNCHES["scatter_add_rows"] += 1
+        return out
 
 
 class _ScatterAddRows(torch.autograd.Function):
