@@ -154,10 +154,15 @@ It builds every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, and
 ``g++`` for the host library, started together), sets the launch counts
 to 0 before each path and checks after it
 that the path launched each kernel at every call site, then holds every
-kernel against its plain PyTorch version on the arguments captured at each
-call site of a real frame, step and sweep of each path (a grid site is
-named by the grid that owns its table: ``pos``, ``ambient`` or ``torso``),
-and times kernel, plain version and library call there. At a scatter-add
+kernel against its plain version on the arguments captured at each call
+site of a real frame, step and sweep of each path (a grid site is named by
+the grid that owns its table: ``pos``, ``ambient`` or ``torso``), and
+times kernel, plain version and library call there. The plain version of
+K1 and K8 is PyTorch on the card; that of the frame-inputs kernel is the
+numpy host path (``frame_inputs_plain``) with its copies to the card,
+timed on the host's clock, and the kernel must match it bit for bit; its
+library call is the same inputs from torch ops on the card
+(``get_rays_device``), whose differing floats are counted. At a scatter-add
 site every kernel variant that takes the site's shape is held to the plain
 version and timed in turns; the run fails if the wrapper's own choice is
 slower than another variant by more than 10% and 2 µs.
@@ -518,9 +523,10 @@ def device_ms(fn, iters: int | None = None) -> float:
 def _wrapper_patches():
     """(module, attribute, call site kind) of every kernel wrapper the main
     path calls through a module global."""
-    from geneface_tpu_torch.ops import encoders, fused_grid, scatter
+    from geneface_tpu_torch.ops import encoders, frame_inputs, fused_grid, scatter
 
     return [
+        (frame_inputs, "launch_frame_inputs", "frame_inputs"),
         (fused_grid, "launch_gather_rows", "grid_forward"),
         (fused_grid, "launch_scatter_add_rows", "grid_backward"),
         (encoders, "launch_gather_rows", "gather_rows"),
@@ -539,7 +545,9 @@ def capture_calls(run) -> list:
     block grids', ``("named", name)`` for the renderer's scatters (and
     their backward gathers), ``("clip", name)`` for stage A's clip gathers
     (and their backward scatter-adds), ``("datagen", name)`` for the
-    datagen renderer's normals and splat (and their backward gathers)."""
+    datagen renderer's normals and splat (and their backward gathers),
+    ``("frame_inputs", "rays" | "rays_bg_torso")`` for a video frame's
+    inputs (its rays alone, or with the torso over the background)."""
     import torch
 
     calls = []
@@ -550,7 +558,9 @@ def capture_calls(run) -> list:
         def call(*args, **kw):
             caller = sys._getframe(1).f_locals
             site = caller.get("site")
-            if kind.startswith("grid"):
+            if kind == "frame_inputs":  # (pose, intrinsics, H, W, device, plane, ...)
+                owner = ("frame_inputs", "rays" if args[5] is None else "rays_bg_torso")
+            elif kind.startswith("grid"):
                 owner = (id(caller["fmeta"]), caller["gi"])
             elif isinstance(site, str):  # the renderer's named scatters
                 owner = ("named", site)
@@ -723,6 +733,98 @@ def measure_gather(table, idx) -> dict:
     }
 
 
+def torch_frame_inputs(pose, intrinsics, H: int, W: int, device, plane, scale: bool, bg):
+    """A frame's inputs from torch ops on the card (``get_rays_device``
+    over every pixel, the composite as three ops): the yardstick of the
+    frame-inputs kernel, which it does not match bit for bit."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.utils.camera import get_rays_device
+
+    inds = torch.arange(H * W, device=device)
+    c2w = torch.as_tensor(np.asarray(pose, np.float32)[:3, :4], device=device)
+    rays_o, rays_d, _, _ = get_rays_device(c2w, intrinsics, inds, H, W)
+    if plane is None:
+        return rays_o, rays_d, None
+    t = plane.reshape(H * W, -1).float()
+    t = t / 255.0 if scale else t
+    if t.shape[1] == 3:
+        return rays_o, rays_d, t
+    a = t[:, 3:]
+    return rays_o, rays_d, t[:, :3] * a + bg * (1 - a)
+
+
+def measure_frame_inputs(pose, intrinsics, H: int, W: int, device, plane, scale: bool,
+                         bg) -> dict:
+    """The frame-inputs kernel on one captured call: held bit for bit
+    against the numpy host path (``frame_inputs_plain``) on the same pose,
+    plane and background, then timed (device time, the kernel and the torch
+    ops in turns, the median of three each); ``plain_ms`` and ``wrapper_ms``
+    are host clock: the host path with the copies of its three outputs (what
+    a frame paid before the kernel), and :func:`frame_inputs` from the
+    host's plane (its copy included)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.ops import frame_inputs as fi
+
+    host_plane = None if plane is None else plane.cpu().numpy()
+    host_bg = None if plane is None else bg.cpu()
+    want = fi.frame_inputs_plain(pose, intrinsics, H, W, host_plane, host_bg)
+
+    def kernel():
+        return fi.launch_frame_inputs(pose, intrinsics, H, W, device, plane, scale, bg)
+
+    def library():
+        return torch_frame_inputs(pose, intrinsics, H, W, device, plane, scale, bg)
+
+    def plain():
+        return [t.to(device) for t in fi.frame_inputs_plain(
+            pose, intrinsics, H, W, host_plane, host_bg) if t is not None]
+
+    def off(got):
+        """Floats whose bits differ from the host path's, and the largest gap."""
+        n, gap = 0, 0.0
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                raise AssertionError("frame inputs: the torso composite is missing or extra")
+            if g is not None:
+                g = g.expand_as(w).cpu()
+                n += int((g.view(torch.int32) != w.view(torch.int32)).sum())
+                gap = max(gap, float((g - w).abs().max()))
+        return n, gap
+
+    differ, err = off(kernel())
+    if differ:
+        raise AssertionError(f"frame inputs: {differ} floats differ from the host path "
+                             f"(max abs {err:.3e})")
+    lib_differ, lib_err = off(library())
+    rounds = {"kernel": [], "library": []}
+    for _ in range(3):
+        rounds["kernel"].append(device_ms(kernel))
+        rounds["library"].append(device_ms(library))
+    n = H * W
+    channels = 0 if plane is None else int(plane.shape[-1])
+    # written: rays_o, rays_d (and the composite); read: the plane, and the
+    # background where the plane has an alpha
+    n_bytes = n * (24 + (12 + channels * plane.element_size() if channels else 0)
+                   + (12 if channels == 4 else 0))
+    return {
+        "M": n, "plane": "none" if plane is None else f"{str(plane.dtype)[6:]} x{channels}",
+        "max_abs_err": err, "bits_differ": differ,
+        "ms": sorted(rounds["kernel"])[1],
+        "plain_ms": host_ms(plain),
+        "wrapper_ms": host_ms(lambda: fi.frame_inputs(pose, intrinsics, H, W, device,
+                                                      host_plane, bg)),
+        "library_ms": sorted(rounds["library"])[1],
+        "library_bits_differ": lib_differ, "library_max_abs_err": lib_err,
+        "ms_events": events_ms(kernel),
+        "bytes_ms": n_bytes / PEAK_BYTES_S * 1e3,
+        "ops_ms": 0.0,
+    }
+
+
 def grid_names(model) -> dict:
     """``id(grid meta)`` (fused, level and block metas) → the grid that owns
     the tables: ``pos``, ``ambient`` and, for the torso model, ``torso``
@@ -743,7 +845,10 @@ def name_sites(calls, grids: dict, path: str) -> dict:
     label."""
     sites = {}
     for kind, args, owner, kw in calls:
-        if owner[0] == "datagen":  # the face renderer's scatters, or their adjoint
+        if owner[0] == "frame_inputs":  # a video frame's inputs from its pose
+            site = f"{path}.frame_inputs.{owner[1]}"
+            kernel = "frame_inputs"
+        elif owner[0] == "datagen":  # the face renderer's scatters, or their adjoint
             scatter = kind == "scatter_add_rows"
             site = f"{path}.{owner[1]}" + ("" if scatter else ".backward_gather")
             kernel = "scatter_add_rows" if scatter else "gather_rows"
@@ -777,6 +882,18 @@ def measure_sites(sites: dict, per_call: dict) -> list:
     """Time every site; ``per_call[site]`` = launches per step or frame."""
     out, wrong = [], []
     for site, (kernel, kind, args, kw) in sites.items():
+        if kernel == "frame_inputs":
+            m = measure_frame_inputs(*args)
+            m.update(site=site, kernel=kernel, launches_per_call=1)
+            out.append(m)
+            print(f"site {site} [{m['M']} pixels, plane {m['plane']}]: frame_inputs "
+                  f"{m['ms']:.4f} ms, bits differing from the host path 0; bound "
+                  f"{m['bytes_ms']:.4f}; plain (host numpy and its copies) "
+                  f"{m['plain_ms']:.4f}; the wrapper with its plane copy "
+                  f"{m['wrapper_ms']:.4f}; torch ops {m['library_ms']:.4f}, "
+                  f"{m['library_bits_differ']} floats off the host path (max abs "
+                  f"{m['library_max_abs_err']:.3e})")
+            continue
         if kernel == "gather_rows":
             m = measure_gather(*args)
         else:
@@ -842,6 +959,15 @@ def ptxas_summary(build_log: str) -> dict:
     return out
 
 
+def ptxas_owner(entry: str) -> str:
+    """The kernel whose source holds the ptxas entry (K1's file holds
+    helper kernels of other names)."""
+    for name, prefix in (("gather_rows", "gather"), ("frame_inputs", "frame_inputs")):
+        if entry.startswith(prefix):
+            return name
+    return "scatter_add_rows"
+
+
 def kernel_entry(name: str, sites: list, launches: dict, ptxas: dict) -> dict:
     """One kernel's line of the ``kernels`` JSON: its times summed over one
     call at every site, launches of the counted serve and train runs."""
@@ -853,6 +979,8 @@ def kernel_entry(name: str, sites: list, launches: dict, ptxas: dict) -> dict:
                              "geneface_tpu/ops/pallas_scatter.py:79"),
         "gather_rows": ("geneface_tpu_torch/csrc/gather_rows.cu",
                         "tools/bench_pallas_scatter2.py:67"),
+        # no TPU kernel: the host's numpy rays and torso composite
+        "frame_inputs": ("geneface_tpu_torch/csrc/frame_inputs.cu", None),
     }[name]
     return {
         "name": name, "route": "cuda", "source": meta[0], "replaces": meta[1],
@@ -867,8 +995,8 @@ def kernel_entry(name: str, sites: list, launches: dict, ptxas: dict) -> dict:
         "ms_events": sum(s["ms_events"] for s in mine),
         "bytes_ms": bytes_ms,
         "sum_of": "one call at each site below",
-        "ptxas": {k: v for k, v in ptxas.items()
-                  if k.startswith("gather") == (name == "gather_rows")},
+        "plain_clock": "host" if name == "frame_inputs" else "device",
+        "ptxas": {k: v for k, v in ptxas.items() if ptxas_owner(k) == name},
         "sites": mine,
     }
 
@@ -929,6 +1057,14 @@ def n_grid_groups(model) -> tuple:
     return head, torso
 
 
+def frame_input_launches(infer, frames: int, prepares: int = 1) -> int:
+    """Launches of the frame-inputs kernel over ``frames`` frames and
+    ``prepares`` ``prepare()`` calls: one a frame, and one a ray-capacity
+    probe pose (up to four, with the ray cull on)."""
+    probes = min(4, len(infer.dataset)) if infer.cfg.get("infer_ray_cull", True) else 0
+    return frames + prepares * probes
+
+
 def frame_vs_cpu(infer, cfg: dict, path: str) -> dict:
     """Frame 0 on the card against the port's plain CPU path (same
     checkpoint, same dtype, the same ray capacity): max abs 1e-3, mean abs
@@ -946,6 +1082,39 @@ def frame_vs_cpu(infer, cfg: dict, path: str) -> dict:
             res["max_abs"] <= 1e-3 and res["mean_abs"] <= 1e-6):
         raise AssertionError(f"{path}: card frame vs CPU plain path {res}")
     return res
+
+
+def torch_inputs_gap(infer) -> dict:
+    """Frame 0 from :func:`torch_frame_inputs`' inputs against frame 0 from
+    the kernel's (the host path's, bit for bit), beside two frames from the
+    kernel's: the float frames' widest gap and the uint8 frames' widest
+    difference in levels (the benchmark's ``frame_rgb_gap`` and the levels
+    it reads)."""
+    import numpy as np
+    import torch
+
+    from geneface_tpu_torch.inference import radnerf_infer
+
+    def torch_ops(pose, intrinsics, H, W, device, torso_img=None, bg=None):
+        plane = None if torso_img is None else torch.from_numpy(
+            np.ascontiguousarray(torso_img)).to(device)
+        scale = torso_img is not None and bool(np.asarray(torso_img, np.float32).max() > 1.5)
+        return torch_frame_inputs(pose, intrinsics, H, W, device, plane, scale, bg)
+
+    def gaps(a, b):
+        u8 = [(np.clip(x.float().cpu().numpy(), 0, 1) * 255).astype(np.int16) for x in (a, b)]
+        return float((a - b).abs().max()), int(np.abs(u8[0] - u8[1]).max())
+
+    frames = [infer.render_frame(0)["rgb_map"] for _ in range(2)]
+    real = radnerf_infer.frame_inputs
+    radnerf_infer.frame_inputs = torch_ops
+    try:
+        ops = infer.render_frame(0)["rgb_map"]
+    finally:
+        radnerf_infer.frame_inputs = real
+    (own, own_lv), (gap, lv) = gaps(frames[0], frames[1]), gaps(frames[0], ops)
+    return {"kernel_twice_gap": own, "kernel_twice_levels": own_lv,
+            "torch_ops_gap": gap, "torch_ops_levels": lv}
 
 
 def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
@@ -975,11 +1144,12 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
     # per frame: the composite sums (the compact path; the padded slab's
     # composite is no scatter) and, with the ray cull, the frame scatter
     # (K1); one row gather per grid group (fused) or level of the head and
-    # the torso (K8)
+    # the torso (K8); the frame's inputs, and prepare()'s probes
     compact = bool(infer.render_kwargs["mean_samples_per_ray"])
     per_frame = int(compact) + int(bool(infer.ray_capacity))
     want = {"scatter_add_rows": per_frame * RENDER_FRAMES,
-            "gather_rows": sum(n_grid_groups(infer.model)) * RENDER_FRAMES}
+            "gather_rows": sum(n_grid_groups(infer.model)) * RENDER_FRAMES,
+            "frame_inputs": frame_input_launches(infer, RENDER_FRAMES)}
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want}")
     last = infer.last_render
@@ -1027,6 +1197,9 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
     vs_cpu = frame_vs_cpu(infer, cfg, path)
     print(f"{path}: frame 0 vs CPU plain path: max abs {vs_cpu['max_abs']:.3e}, "
           f"mean abs {vs_cpu['mean_abs']:.3e}")
+    ops_gap = torch_inputs_gap(infer)
+    print(f"{path}: frame 0 from torch-op inputs vs from the kernel's "
+          + json.dumps(ops_gap))
 
     calls = capture_calls(lambda: infer.render_frame(0))
     sites = name_sites(calls, grid_names(infer.model), path)
@@ -1036,7 +1209,7 @@ def serve_phase(cfg, out_dir: str, path: str = "serve") -> tuple:
           "stages ms " + json.dumps({k: round(v, 3) for k, v in prof["stages_ms"].items()}))
     record = {"ms_per_frame": wall / RENDER_FRAMES * 1e3, "steady_ms": times,
               "ray_capacity": C, "sample_capacity": Mc, "profile": prof,
-              "frame_vs_cpu_max_abs": vs_cpu["max_abs"]}
+              "frame_vs_cpu_max_abs": vs_cpu["max_abs"], "torch_inputs_gap": ops_gap}
     return record, launches, sites
 
 
@@ -1182,7 +1355,8 @@ def audio_serve_phase(cfg, out_dir: str, path: str = "audio_serve") -> tuple:
         raise AssertionError(f"{path}: frames {frames.shape} {frames.dtype}")
     per_frame = 2 if render.ray_capacity else 1
     want = {"scatter_add_rows": per_frame * RENDER_FRAMES,
-            "gather_rows": sum(n_grid_groups(render.model)) * RENDER_FRAMES}
+            "gather_rows": sum(n_grid_groups(render.model)) * RENDER_FRAMES,
+            "frame_inputs": frame_input_launches(render, RENDER_FRAMES)}
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want}")
     fps = len(lm3d) / AUDIO_SECONDS
@@ -1648,7 +1822,7 @@ def audio_train_phase(cfg, out_dir: str, path: str = "audio_train") -> tuple:
                                "audio2motion_work_dir": os.path.join(work, "pitch_vae")})]
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    want = {"gather_rows": 0, "scatter_add_rows": 0}
+    want = {"gather_rows": 0, "scatter_add_rows": 0, "frame_inputs": 0}
     tasks = {}
     for name, over in plan:
         tcfg = audio_task_cfg(name, store, work, **over)
@@ -1713,7 +1887,7 @@ def audio_train_phase(cfg, out_dir: str, path: str = "audio_train") -> tuple:
               + json.dumps([round(x, 3) for x in step_ms]) + "; logged "
               + json.dumps({k: round(v, 5) for k, v in losses.items()}))
     launches = dict(LAUNCHES)
-    if launches != want or not all(launches.values()):
+    if launches != want or not (launches["gather_rows"] and launches["scatter_add_rows"]):
         raise AssertionError(f"{path} launches {launches}, expected {want}")
 
     sites, checks, profiles = {}, {}, {}
@@ -2007,7 +2181,7 @@ def train_phase(cfg, out_dir: str, path: str = "train") -> tuple:
         sweep_chunks = 1
         want = {
             "gather_rows": TRAIN_STEPS * (n_head + n_torso) + n_sweeps * n_torso,
-            "scatter_add_rows": TRAIN_STEPS * n_torso,
+            "scatter_add_rows": TRAIN_STEPS * n_torso, "frame_inputs": 0,
         }
     else:
         # per step: the grid gathers and the composite's backward gather
@@ -2016,7 +2190,7 @@ def train_phase(cfg, out_dir: str, path: str = "train") -> tuple:
         sweep_chunks = 16
         want = {
             "gather_rows": TRAIN_STEPS * (n_head + 1) + n_sweeps * sweep_chunks * n_head,
-            "scatter_add_rows": TRAIN_STEPS * (1 + n_head),
+            "scatter_add_rows": TRAIN_STEPS * (1 + n_head), "frame_inputs": 0,
         }
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want}")
@@ -2623,7 +2797,7 @@ def train_lip_phase(cfg, out_dir: str, path: str = "train_lip") -> tuple:
     print(f"{path}: lip steps {lips}, sweep steps {sweeps}; losses " + json.dumps(
         [{k: round(v, 6) for k, v in x.items()} for x in losses]))
     want = {"gather_rows": LIP_STEPS * (n_head + 1) + len(sweeps) * 16 * n_head,
-            "scatter_add_rows": LIP_STEPS * (1 + n_head)}
+            "scatter_add_rows": LIP_STEPS * (1 + n_head), "frame_inputs": 0}
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want}")
     if lips != list(range(LIP_START + 2, LIP_STEPS, 2)) or sweeps != [0]:
@@ -2851,6 +3025,7 @@ def import_serve_phase(cfg, out_dir: str, path: str = "import_serve") -> tuple:
     ``python -m geneface_tpu_torch.tools.validate_import`` on the
     checkpoint; each backend's frame held against the CPU plain path
     (:func:`serve_phase` for each backend); → (record, launches, sites)."""
+    from geneface_tpu_torch.kernels import LAUNCHES
     from geneface_tpu_torch.tools.validate_import import main as validate_main
     from geneface_tpu_torch.utils.torch_import import import_radnerf_checkpoint
 
@@ -2862,7 +3037,7 @@ def import_serve_phase(cfg, out_dir: str, path: str = "import_serve") -> tuple:
     print(f"{path}: authored {os.path.basename(src)} ({os.path.getsize(src) / 2**20:.1f} MiB) "
           f"and imported it as {os.path.relpath(dst, REPO)} in {import_s:.2f} s")
     record = {"import_s": import_s}
-    launches = {"scatter_add_rows": 0, "gather_rows": 0}
+    launches = {k: 0 for k in LAUNCHES}
     sites = {}
     for backend in ("reference", "block"):
         sub = path if backend == "reference" else f"{path}_block"
@@ -2946,7 +3121,7 @@ def import_train_phase(cfg, out_dir: str, path: str = "import_train") -> tuple:
     # per step one gather (forward) and one scatter (backward) per grid
     # level; per sweep one gather per level and chunk (16 chunks)
     want = {"gather_rows": TRAIN_STEPS * n_head + len(sweeps) * 16 * n_head,
-            "scatter_add_rows": TRAIN_STEPS * n_head}
+            "scatter_add_rows": TRAIN_STEPS * n_head, "frame_inputs": 0}
     if launches != want or sweeps != list(range(0, TRAIN_STEPS, interval)):
         raise AssertionError(f"{path} launches {launches}, expected {want}; sweeps {sweeps}")
     print(f"{path}: losses " + json.dumps([round(x, 6) for x in losses]))
@@ -3207,7 +3382,8 @@ def datagen_phase(cfg, out_dir: str, path: str = "datagen") -> tuple:
     binarize_video(man, store, basis=lb)
     chunk = min(DATAGEN_PHOTO_BATCH, DATAGEN_FRAMES)
     n_photo_steps = PHOTO_GLOBAL_STEPS + PHOTO_FRAME_STEPS * -(-DATAGEN_FRAMES // chunk)
-    want = {"scatter_add_rows": 2 * n_photo_steps, "gather_rows": 2 * n_photo_steps}
+    want = {"scatter_add_rows": 2 * n_photo_steps, "gather_rows": 2 * n_photo_steps,
+            "frame_inputs": 0}
     launches = dict(LAUNCHES)
     if launches != want:
         raise AssertionError(f"{path} launches {launches}, expected {want} (normals and splat, "
@@ -4952,7 +5128,7 @@ def options_phase(cfg, out_dir: str, path: str = "options") -> tuple:
     record, runs, sites = {}, {}, {}
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    want = {"gather_rows": 0, "scatter_add_rows": 0}
+    want = {"gather_rows": 0, "scatter_add_rows": 0, "frame_inputs": 0}
     # (a), (b): the counted frames and steps of every setting
     for tag, over in cells:
         base = bcfg if tag == "bound2" else cfg
@@ -4980,6 +5156,7 @@ def options_phase(cfg, out_dir: str, path: str = "options") -> tuple:
             if infer is not None:
                 want["gather_rows"] += n * sum(n_grid_groups(infer.model))
                 want["scatter_add_rows"] += n * (1 + int(bool(infer.ray_capacity)))
+                want["frame_inputs"] += frame_input_launches(infer, n)
         want["gather_rows"] += OPTION_STEPS * (n_head + 1) + C * 16 * n_head
         want["scatter_add_rows"] += OPTION_STEPS * (1 + n_head)
     launches = dict(LAUNCHES)
@@ -5042,7 +5219,7 @@ def options_phase(cfg, out_dir: str, path: str = "options") -> tuple:
                                        **frozen)}
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-    tasks, audio_want = {}, {"gather_rows": 0, "scatter_add_rows": 0}
+    tasks, audio_want = {}, {"gather_rows": 0, "scatter_add_rows": 0, "frame_inputs": 0}
     for name, tcfg in audio.items():
         task = resolve_task(tcfg["task_cls"])(tcfg)
         task.build()
@@ -5200,8 +5377,8 @@ def main() -> int:
               + json.dumps(PROFILER["opening_records"]) + "; rows "
               "that lost launches (windows, launches) " + json.dumps(dict(sorted(
                   PROFILER["short_rows"].items(), key=lambda r: -r[1][0])[:5])))
-        kernels_line = {"kernels": [kernel_entry("scatter_add_rows", sites, launches, ptxas),
-                                    kernel_entry("gather_rows", sites, launches, ptxas)]}
+        kernels_line = {"kernels": [kernel_entry(k, sites, launches, ptxas) for k in
+                                    ("scatter_add_rows", "gather_rows", "frame_inputs")]}
         record.update(kernels_line, profiler=PROFILER)
         with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
             json.dump(record, f, indent=1)

@@ -36,7 +36,7 @@ from geneface_tpu_torch.utils.camera import (
     nerf_matrix_to_ngp,
 )
 
-__all__ = ["RADNeRFDataset", "smooth_camera_path", "get_cond_window"]
+__all__ = ["RADNeRFDataset", "smooth_camera_path", "get_cond_window", "composite_torso"]
 
 
 def smooth_camera_path(poses: np.ndarray, kernel_size: int = 7) -> np.ndarray:
@@ -70,6 +70,19 @@ def get_cond_window(conds: np.ndarray, index: int, smo_win_size: int) -> np.ndar
     if pad_left or pad_right:
         win = np.pad(win, [(pad_left, pad_right)] + [(0, 0)] * (conds.ndim - 1))
     return win
+
+
+def composite_torso(torso_img, bg_img: np.ndarray) -> np.ndarray:
+    """A torso plane ``[H, W, 3|4]`` (uint8 or float; scaled by 1/255 where
+    its largest value is above 1.5) over the float background ``[H, W, 3]``
+    by its alpha; a 3-channel plane is the background itself."""
+    torso = np.asarray(torso_img, np.float32)
+    if torso.max() > 1.5:
+        torso = torso / 255.0
+    if torso.shape[-1] == 4:
+        alpha = torso[..., 3:]
+        return torso[..., :3] * alpha + bg_img * (1 - alpha)
+    return torso
 
 
 def _to_u8(a: np.ndarray) -> np.ndarray:
@@ -200,13 +213,7 @@ class RADNeRFDataset:
 
     def _bg_torso(self, sample) -> np.ndarray:
         """The torso composited onto the background: the head's background."""
-        torso = np.asarray(sample["torso_img"], np.float32)
-        if torso.max() > 1.5:
-            torso = torso / 255.0
-        if torso.shape[-1] == 4:
-            alpha = torso[..., 3:]
-            return torso[..., :3] * alpha + self.bg_img * (1 - alpha)
-        return torso
+        return composite_torso(sample["torso_img"], self.bg_img)
 
     def __getitem__(self, idx: int) -> dict:
         if self.training:

@@ -5,7 +5,9 @@ Per video: load the checkpoint (JAX-written or the port's own; one whose
 state holds ``torso_occ`` is a torso checkpoint), build the per-video
 constants once — the 13-slab k-DOP of the occupied cells, the ray capacity
 probed from a few dataset poses, the packed occupancy blocks, the dense
-grid views and, for the torso, its occupancy mask over the screen — then
+grid views, the background on the device and, for the torso, its
+occupancy mask over the screen — then build each frame's rays (and the
+head's torso-over-background) from its pose (one kernel on the card),
 render every frame through the culled renderer (the lattice march and the
 compaction, or under ``mean_samples_per_ray: 0`` — the GeneFace import
 config's — the walk and the padded slab), and the torso under the head over
@@ -43,6 +45,7 @@ from geneface_tpu_torch.models.radnerf import (
     render_rays_radnerf_torso,
     torso_occupancy_mask,
 )
+from geneface_tpu_torch.ops.frame_inputs import frame_inputs
 from geneface_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
 
 __all__ = ["RADNeRFInfer", "save_mp4", "pick_ray_capacity"]
@@ -135,6 +138,8 @@ class RADNeRFInfer:
         self._tables = None
         self._torso_tables = None
         self.torso_mask = None  # [H*W] bool, per video
+        self._bg = None  # [H*W, 3] float32 background, per video
+        self._bg_coords = None  # [H*W, 2] the torso's screen coordinates, per video
         self.last_render = None  # output dict of the latest frame
 
     # ------------------------------------------------------------------
@@ -149,13 +154,8 @@ class RADNeRFInfer:
         self.cull_kdop = occupied_kdop(self.occ_grid, bound)
         n = 0
         for i in range(0, len(ds), max(1, len(ds) // n_probe))[:n_probe]:
-            item = ds[i]
-            hit = kdop_hit(
-                torch.as_tensor(item["rays_o"], device=self.device),
-                torch.as_tensor(item["rays_d"], device=self.device),
-                self.cull_kdop, min_near,
-            )
-            n = max(n, int(hit.sum()))
+            rays_o, rays_d, _ = frame_inputs(ds.poses[i], ds.intrinsics, ds.H, ds.W, self.device)
+            n = max(n, int(kdop_hit(rays_o, rays_d, self.cull_kdop, min_near).sum()))
         return pick_ray_capacity(n, ds.H * ds.W)
 
     def conds_from_lm3d(self, idexp_lm3d: np.ndarray) -> np.ndarray:
@@ -182,9 +182,13 @@ class RADNeRFInfer:
 
     def prepare(self) -> None:
         """Per-video constants: ray capacity + k-DOP, occupancy blocks, grid
-        views; for the torso its grid views and its occupancy mask over the
-        dataset's screen coordinates."""
+        views, the background on the device; for the torso its screen
+        coordinates there, its grid views and its occupancy mask over them."""
         with record_function("gf::prepare"):
+            ds = self.dataset
+            self._bg = torch.as_tensor(ds.bg_img.reshape(-1, 3), device=self.device)
+            self._bg_coords = (torch.as_tensor(ds.bg_coords, device=self.device)
+                               if self.torso else None)
             self.ray_capacity = self._pick_ray_capacity()
             if self.ray_capacity is None:
                 self.cull_kdop = None
@@ -194,8 +198,7 @@ class RADNeRFInfer:
                 if self.torso:
                     self._torso_tables = self.model.torso_grid_tables()
                     self.torso_mask = torso_occupancy_mask(
-                        self.torso_occ,
-                        torch.as_tensor(self.dataset.bg_coords, device=self.device),
+                        self.torso_occ, self._bg_coords,
                         self.render_kwargs["grid_size"],
                         float(self.cfg.get("density_thresh_torso", 0.01)),
                     )
@@ -204,19 +207,23 @@ class RADNeRFInfer:
     def render_frame(self, i: int, conds: np.ndarray | None = None) -> dict:
         """Render frame ``i`` (dataset pose ``i`` mod its length, condition
         window centred on ``i``) after :meth:`prepare` → the renderer's
-        output dict (``rgb_map`` [H*W, 3] float32, ...)."""
+        output dict (``rgb_map`` [H*W, 3] float32, ...). The frame's rays
+        and, for the head alone, its torso over the background come from
+        :func:`frame_inputs` (on the card one launch; the pose, the torso
+        plane and the condition window are the frame's only copies)."""
         ds = self.dataset
         dev = self.device
         with record_function("gf::frame_inputs"):
             conds = ds.conds if conds is None else conds
-            item = ds[i % len(ds)]
+            k = i % len(ds)
             cond = get_cond_window(conds, i, self.cfg.get("smo_win_size", 5))
-            bg = item["bg_img"] if self.torso else item["bg_torso_img"]
+            torso_img = None if self.torso else ds.samples[k]["torso_img"]
+            rays_o, rays_d, bg = frame_inputs(ds.poses[k], ds.intrinsics, ds.H, ds.W, dev,
+                                              torso_img, self._bg)
             args = (
-                *(torch.as_tensor(item[k], device=dev) for k in ("rays_o", "rays_d")),
-                torch.as_tensor(bg, device=dev),
-                torch.as_tensor(item["bg_coords"], device=dev) if self.torso else None, cond,
-                torch.as_tensor(item["pose"], device=dev), 0,
+                rays_o, rays_d, self._bg if self.torso else bg,
+                self._bg_coords if self.torso else None, cond,
+                torch.as_tensor(ds.poses6[k : k + 1], device=dev), 0,
             )
         return self.render_rays(*args, ray_capacity=self.ray_capacity, cull_kdop=self.cull_kdop,
                                 torso_mask=self.torso_mask)

@@ -21,8 +21,9 @@ CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC_DIR, "build")
 
 #: kernel name -> launches so far; each wrapper adds one where it launches
-#: its kernel and nowhere else (callers that count a run reset it)
-LAUNCHES = {"scatter_add_rows": 0, "gather_rows": 0}
+#: its kernel and nowhere else (callers that count a run reset it).
+#: ``frame_inputs``: one a video frame's inputs, one a ``prepare()`` probe pose
+LAUNCHES = {"scatter_add_rows": 0, "gather_rows": 0, "frame_inputs": 0}
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}

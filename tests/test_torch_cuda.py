@@ -26,7 +26,10 @@ the vanilla NeRF's render (the CPU on the card's importance
 samples) 1e-5 absolute per pixel, its gradients 1e-4 relative L2; two
 gloo ranks sharing the card against one rank — each step's loss rel 1e-3,
 its gradients 0.1 relative L2 (``chip_smoke.py``'s card bounds); the
-native loader's pixels within one uint8 level of the numpy path's.
+native loader's pixels within one uint8 level of the numpy path's; a video
+frame's rays and torso-over-background from the frame-inputs kernel —
+exact, bit for bit against the host path (a last-bit ray direction moves a
+sample across an occupancy cell edge).
 """
 
 import os
@@ -423,13 +426,16 @@ def test_frame_on_card_matches_cpu(card, tmp_path):
     cpu = RADNeRFInfer(cfg, device="cpu", dtype=torch.float32)
     gpu = RADNeRFInfer(cfg, device=card, dtype=torch.float32)
     cpu.prepare()
+    before = dict(LAUNCHES)
     gpu.prepare()
+    assert LAUNCHES["frame_inputs"] == before["frame_inputs"] + 4  # the capacity probes
     assert gpu.ray_capacity == cpu.ray_capacity is not None
     before = dict(LAUNCHES)
     got = gpu.render_frame(1)
     torch.cuda.synchronize()
     assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 2
     assert LAUNCHES["gather_rows"] == before["gather_rows"] + 4
+    assert LAUNCHES["frame_inputs"] == before["frame_inputs"] + 1
     want = cpu.render_frame(1)
     assert torch.equal(got["n_samples"].cpu(), want["n_samples"])
     torch.testing.assert_close(got["rgb_map"].cpu(), want["rgb_map"], rtol=0, atol=1e-5)
@@ -444,17 +450,98 @@ def test_torso_frame_on_card_matches_cpu(card, tmp_path):
     gpu = RADNeRFInfer(cfg, device=card, dtype=torch.float32)
     assert cpu.torso and gpu.torso
     cpu.prepare()
+    before = dict(LAUNCHES)
     gpu.prepare()
+    assert LAUNCHES["frame_inputs"] == before["frame_inputs"] + 4  # the capacity probes
     assert torch.equal(gpu.torso_mask.cpu(), cpu.torso_mask)
     before = dict(LAUNCHES)
     got = gpu.render_frame(1)
     torch.cuda.synchronize()
     assert LAUNCHES["scatter_add_rows"] == before["scatter_add_rows"] + 2
     assert LAUNCHES["gather_rows"] == before["gather_rows"] + 4 + 2  # head + torso groups
+    assert LAUNCHES["frame_inputs"] == before["frame_inputs"] + 1
     want = cpu.render_frame(1)
     torch.testing.assert_close(got["rgb_map"].cpu(), want["rgb_map"], rtol=0, atol=1e-5)
     torch.testing.assert_close(got["torso_alpha_map"].cpu(), want["torso_alpha_map"],
                                rtol=0, atol=1e-5)
+
+
+def _torso_plane(kind, H, W, rng):
+    """A torso plane as a dataset may hold it (``dataset``: the file's own)."""
+    return {
+        "u8_rgba": lambda: rng.randint(0, 256, (H, W, 4)).astype(np.uint8),
+        "u8_rgb": lambda: rng.randint(0, 256, (H, W, 3)).astype(np.uint8),
+        "f32_rgba_unit": lambda: rng.rand(H, W, 4).astype(np.float32),
+        "f32_rgb_255": lambda: (rng.rand(H, W, 3) * 255).astype(np.float32),
+        "f64_rgba_255": lambda: rng.rand(H, W, 4) * 255,
+    }[kind]()
+
+
+def _random_poses(n, rng):
+    """c2w poses of uniformly random rotations (the rotation chain's every
+    sign and magnitude) at random centres."""
+    out = []
+    for _ in range(n):
+        q = rng.randn(4)
+        a, b, c, d = q / np.linalg.norm(q)
+        P = np.eye(4, dtype=np.float32)
+        P[:3, :3] = [[a * a + b * b - c * c - d * d, 2 * (b * c - a * d), 2 * (b * d + a * c)],
+                     [2 * (b * c + a * d), a * a - b * b + c * c - d * d, 2 * (c * d - a * b)],
+                     [2 * (b * d - a * c), 2 * (c * d + a * b), a * a - b * b - c * c + d * d]]
+        P[:3, 3] = rng.randn(3)
+        out.append(P)
+    out.append(np.eye(4, dtype=np.float32))  # exact zeros in the rotation
+    return out
+
+
+@pytest.mark.parametrize("planes", ["dataset", "u8_rgba", "u8_rgb", "f32_rgba_unit",
+                                    "f32_rgb_255", "f64_rgba_255"])
+def test_frame_inputs_kernel_is_the_host_path_bit_for_bit(card, tmp_path, planes):
+    """Every pose of a 512² dataset (and random rotations at other
+    intrinsics): the kernel's rays and torso-over-background equal
+    ``get_rays`` and ``RADNeRFDataset._bg_torso`` (``__getitem__``) bit
+    for bit, and the rays alone equal the rays with the plane."""
+    import chip_smoke
+
+    from geneface_tpu_torch.data.radnerf_dataset import RADNeRFDataset
+    from geneface_tpu_torch.ops.frame_inputs import frame_inputs
+    from geneface_tpu_torch.tools.make_synthetic_dataset import make_dataset
+    from geneface_tpu_torch.utils.camera import get_rays
+
+    data = str(tmp_path / "data")
+    make_dataset(data, n_frames=8, hw=512, seed=0)
+    ds = RADNeRFDataset("trainval", data, chip_smoke.production_cfg(data, str(tmp_path)))
+    bg = torch.as_tensor(ds.bg_img.reshape(-1, 3), device=card)
+    rng = np.random.RandomState(7)
+
+    def bits(x):
+        x = x.cpu().numpy() if torch.is_tensor(x) else np.asarray(x)
+        assert x.dtype == np.float32
+        return x.view(np.int32)
+
+    for i in range(len(ds)):
+        sample = ds.samples[i]
+        if planes != "dataset":
+            sample["torso_img"] = _torso_plane(planes, ds.H, ds.W, rng)
+        item = ds[i]
+        before = LAUNCHES["frame_inputs"]
+        o, d, b = frame_inputs(ds.poses[i], ds.intrinsics, ds.H, ds.W, card,
+                               sample["torso_img"], bg)
+        o2, d2, none = frame_inputs(ds.poses[i], ds.intrinsics, ds.H, ds.W, card)
+        torch.cuda.synchronize()
+        assert LAUNCHES["frame_inputs"] == before + 2 and none is None
+        for got, want in ((o, item["rays_o"]), (d, item["rays_d"]), (b, item["bg_torso_img"]),
+                          (o2, item["rays_o"]), (d2, item["rays_d"])):
+            diff = bits(got) != bits(want)
+            assert not diff.any(), (i, int(diff.sum()))
+    for k, pose in enumerate(_random_poses(8, rng)):
+        intr = (900.0 + 700 * rng.rand(), 900.0 + 700 * rng.rand(), 200 + 100 * rng.rand(),
+                200 + 100 * rng.rand())
+        want = get_rays(pose, intr, 384, 640)
+        o, d, _ = frame_inputs(pose, intr, 384, 640, card)
+        for got, ref in ((o, want["rays_o"]), (d, want["rays_d"])):
+            diff = bits(got) != bits(ref)
+            assert not diff.any(), (k, int(diff.sum()))
 
 
 @pytest.mark.parametrize("torso", [False, True], ids=["head", "torso"])
@@ -706,7 +793,7 @@ def test_two_rank_gloo_steps_on_card_match_one_rank(card, tmp_path):
                                               str(tmp_path / "ranks"), device="cuda:0"))
     before = dict(LAUNCHES)
     one = ddp.step_result(**case)
-    assert all(LAUNCHES[k] > before[k] for k in before)
+    assert all(LAUNCHES[k] > before[k] for k in ("scatter_add_rows", "gather_rows"))
     for s, (l1, l2) in enumerate(zip(one["losses"], r0["losses"])):
         assert abs(l2["total_loss"] - l1["total_loss"]) <= 1e-3 * abs(l1["total_loss"]), s
         for name, g in one["grads"][s].items():
@@ -740,7 +827,7 @@ def test_native_loader_feeds_a_card_step(card, tmp_path):
     out = task.train_step(batch)
     torch.cuda.synchronize()
     assert np.isfinite(float(out["total_loss"]))
-    assert all(LAUNCHES[k] > before[k] for k in before)
+    assert all(LAUNCHES[k] > before[k] for k in ("scatter_add_rows", "gather_rows"))
 
 
 def test_tsne_on_card_matches_cpu(card):
